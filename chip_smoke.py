@@ -8,8 +8,9 @@ Phases; any failure raises and the script exits non-zero:
                 limit (nvidia-smi).
   2. build    — compiles csrc/sized_spmm.cu from this checkout (nvcc,
                 sm_90a).
-  3. checks   — each kernel against its plain PyTorch version on the card:
-                P in {512, 1024}, live sizes {0, 1, 127, 129, P},
+  3. checks   — each kernel against its plain PyTorch version on the card,
+                on packed edge lists (duplicates, pad edges): P in
+                {512, 1024}, live sizes {0, 1, 127, 129, P},
                 H in {1, 5, 50, 128, 256}, float32 and bf16; the forward,
                 the backward through SizedAgg, and a double backward.
   4. data     — the arxiv-scale synthetic graph (170k nodes, degree 28,
@@ -17,20 +18,24 @@ Phases; any failure raises and the script exits non-zero:
                 episodes, built with the port's numpy host layer.
   5. timing   — both kernels at this run's arxiv query batch (72 bins per
                 task x the meta-step's tasks, P = 1024, the batch's real
-                adjacency and bin fills), H = 128 and 256, float32: kernel,
-                plain version and torch.bmm over full blocks (a yardstick
-                only), medians of CUDA-event times over 20 launches, beside
-                the least time the card could take for this data: reading
-                the live blocks of A and x and writing the output, or the
-                2 x nnz(A) x H operations the real edges need, whichever
-                is longer.
+                edges), H = 128 and 256, float32, after checking that the
+                CSRs hold densify's edges and degrees: kernel, plain
+                version, torch.sparse.mm of the same CSR (cuSPARSE) and
+                torch.bmm over the dense blocks (what agg="dense" runs),
+                the last two yardsticks only; medians of CUDA-event times
+                over 20 launches, beside the least time the card could take
+                for this data: reading the x rows the edges name and the
+                int32 indices once and writing the output once, or the
+                2 x nnz x H operations of the edges, whichever is longer.
   6. cuda=cpu — at a small size, one train_step on cuda (kernels) equals
                 the same step on cpu (plain versions) from the same params.
   7. slice    — Trainer.fit at the arxiv preset's widths with agg="sized",
                 float32, cut to 2 meta-steps of 32 tasks (batchsz 10000 ->
                 64), 16 val/test tasks (eval_batchsz 100 -> 16), 1 epoch
                 (10 -> 1). Kernel launch counts are set to 0 just before it
-                and read just after; both kernels must have run.
+                and read just after; both kernels must have run. Then warm
+                sized and dense meta-steps in turns, with the seconds and
+                peak device memory of each, and a profiled sized step.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or the JAX package.
@@ -87,15 +92,29 @@ def cuda_ms(fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
-def packed_case(S, P, H, sizes, dtype, device, seed):
+def packed_graph(P, sizes, device, seed, density=0.03):
+    """A packed set as data/pack.py emits it: edges inside each bin's live
+    corner, about one in five duplicated, dst nondecreasing, then pad edges
+    (src 0, dst S*P-1, mask 0). Returns its graph and dense adjacency."""
+    import numpy as np
     import torch
-    g = torch.Generator().manual_seed(seed)
-    A = torch.zeros(S, P, P)
-    for s, n in enumerate(sizes):
-        A[s, :n, :n] = (torch.rand(n, n, generator=g) < 0.03).float()
-    h = torch.randn(S, P, H, generator=g)
-    return (A.to(device, dtype), h.to(device, dtype),
-            torch.tensor(sizes, dtype=torch.int32, device=device))
+    from gmeta_tpu_torch.ops.sized_spmm import sized_graph
+    from gmeta_tpu_torch.ops.spmm import densify
+    rng = np.random.RandomState(seed)
+    S, n_pad = len(sizes), 64
+    src, dst = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
+    for b, n in enumerate(sizes):
+        d, s = np.nonzero(rng.rand(n, n) < density)
+        reps = 1 + (rng.rand(d.size) < 0.2)
+        dst.append(b * P + np.repeat(d, reps))
+        src.append(b * P + np.repeat(s, reps))
+    src = np.concatenate(src + [np.zeros(n_pad, np.int64)])
+    dst = np.concatenate(dst + [np.full(n_pad, S * P - 1)])
+    mask = np.concatenate([np.ones(src.size - n_pad), np.zeros(n_pad)])
+    src, dst, mask = (torch.from_numpy(a).to(device) for a in
+                      (src, dst, mask.astype(np.float32)))
+    return (sized_graph(src, dst, mask, S, P),
+            densify(src, dst, mask, S, P))
 
 
 def check_kernels(device):
@@ -111,45 +130,51 @@ def check_kernels(device):
         e = (got.float() - want.float()).abs().max().item()
         err[direction][dtype] = max(err[direction][dtype], e)
 
+    def plain(direction, x):
+        return sp.sized_plain(*graph.csr(direction), x)
+
+    g = torch.Generator().manual_seed(0)
     for P in (512, 1024):
         sizes = [0, 1, 127, 129, P]
+        graph, A = packed_graph(P, sizes, device, seed=P)
         for H in (1, 5, 50, 128, 256):
+            x32 = torch.randn(len(sizes), P, H, generator=g).to(device)
             for dtype in ("float32", "bfloat16"):
-                A, h, sz = packed_case(len(sizes), P, H, sizes,
-                                       getattr(torch, dtype), device,
-                                       seed=P + H)
-                for direction in ("fwd", "bwd"):
-                    got = sp.launch(direction, A, h, sz)
-                    want = sp.sized_plain(A, h, sz,
-                                          transpose=direction == "bwd")
-                    close(direction, dtype, got, want)
+                h = x32.to(getattr(torch, dtype))
+                for direction, At in (("fwd", A), ("bwd", A.transpose(1, 2))):
+                    got = sp.launch(direction, graph, h)
+                    close(direction, dtype, got, plain(direction, h))
+                    for s, n in enumerate(sizes):
+                        assert not got[s, n:].any(), (direction, s)
+                    if dtype == "float32":     # the function itself
+                        torch.testing.assert_close(
+                            got, torch.bmm(At, h), rtol=TOLS[dtype][0],
+                            atol=TOLS[dtype][1])
                 # backward through SizedAgg: d/dh <r, A h> = A^T r (bwd)
                 x = h.clone().requires_grad_()
-                r = torch.randn_like(h)
-                g, = torch.autograd.grad((sp.aggregate_sized(A, x, sz) * r)
-                                         .sum(), x)
-                close("bwd", dtype, g,
-                      sp.sized_plain(A, r, sz, transpose=True))
-                g, = torch.autograd.grad((sp.aggregate_sized_t(A, x, sz)
-                                          * r).sum(), x)
-                close("fwd", dtype, g, sp.sized_plain(A, r, sz))
+                r = torch.randn(h.shape, generator=g).to(device, h.dtype)
+                gx, = torch.autograd.grad((sp.aggregate_sized(graph, x) * r)
+                                          .sum(), x)
+                close("bwd", dtype, gx, plain("bwd", r))
+                gx, = torch.autograd.grad((sp.aggregate_sized_t(graph, x)
+                                           * r).sum(), x)
+                close("fwd", dtype, gx, plain("fwd", r))
         # double backward (grad-of-grad through three inner steps)
-        A, h, sz = packed_case(len(sizes), P, 16, sizes, torch.float32,
-                               device, seed=P)
+        h = torch.randn(len(sizes), P, 16, generator=g).to(device)
 
         def meta_grad(agg):
             w0 = torch.tensor(1.0, device=device, requires_grad=True)
             w = w0
             for _ in range(3):
-                inner = agg(A, h * w, sz).pow(2).mean()
+                inner = agg(h * w).pow(2).mean()
                 gw, = torch.autograd.grad(inner, w, create_graph=True)
                 w = w - 0.1 * gw
-            return torch.autograd.grad(agg(A, h * w, sz).sum(), w0)[0]
-        got = meta_grad(sp.aggregate_sized)
-        want = meta_grad(lambda a, x, s: sp.sized_plain(a, x, s))
+            return torch.autograd.grad(agg(h * w).sum(), w0)[0]
+        got = meta_grad(lambda x: sp.aggregate_sized(graph, x))
+        want = meta_grad(lambda x: plain("fwd", x))
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
-        log(f"  P={P}: double backward {got.item():.6g} vs plain "
-            f"{want.item():.6g}")
+        log(f"  P={P}: nnz {int(graph.row_ptr[-1])}; double backward "
+            f"{got.item():.6g} vs plain {want.item():.6g}")
     torch.cuda.synchronize()
     for d in err:
         log(f"  {d}: max abs err float32 {err[d]['float32']:.3g} "
@@ -169,63 +194,85 @@ def arxiv_data(seed=7):
 
 
 def time_kernels(batch, device):
-    """Phase 5: both kernels at the main path's query shape and data."""
+    """Phase 5: both kernels at the main path's query batch and data."""
     import torch
     from gmeta_tpu_torch.meta.maml import batch_to
     from gmeta_tpu_torch.models.gcn import precompute
     from gmeta_tpu_torch.ops import sized_spmm as sp
+    from gmeta_tpu_torch.ops.spmm import degrees_from_dense, densify
 
     qry = batch_to(batch, device).qry
-    A = precompute(qry).A                           # (T*B, P, P) float32
-    S, P, _ = A.shape
-    sizes = qry.bin_fill.reshape(-1).to(torch.int32).contiguous()
-    n = sizes.double()
-    live_sq, live_rows = float((n * n).sum()), float(n.sum())
-    # A is zero outside the live blocks, so this is nnz inside them
-    nnz = float(torch.count_nonzero(A))
-    log(f"  S={S} bins, P={P}, mean fill {live_rows / (S * P):.4f}, "
-        f"A {A.numel() * 4 / 1e9:.2f} GB, nnz {nnz:.0f} "
-        f"({100 * nnz / live_sq:.3f}% of the live blocks)")
+    T, B, P = qry.node_gid.shape
+    S, N = T * B, T * B * P
+    torch.cuda.synchronize()
+    t0 = time.time()
+    graph = precompute(qry, agg="sized").sized
+    torch.cuda.synchronize()
+    build_ms = (time.time() - t0) * 1e3
+    # a check only: the CSRs hold densify's edges, and their degrees
+    A = densify(qry.edge_src, qry.edge_dst, qry.edge_mask, B, P).view(S, P, P)
+    nnz = int(graph.row_ptr[-1])
+    assert nnz == int(graph.row_ptr_t[-1]) == int(qry.edge_mask.sum()) \
+        == int(A.sum(dtype=torch.float64)), nnz
+    assert torch.equal(graph.degrees().view(S, P).float(),
+                       degrees_from_dense(A))
+    assert torch.equal((graph.row_ptr_t[1:] - graph.row_ptr_t[:-1])
+                       .view(S, P).float(), A.sum(dim=-2))
+    live_rows = float(qry.bin_fill.double().sum())
+    live_sq = float((qry.bin_fill.double() ** 2).sum())
+    log(f"  S={S} bins, P={P}, mean fill {live_rows / N:.4f}, nnz {nnz} "
+        f"({100 * nnz / live_sq:.3f}% of the live blocks); CSRs built in "
+        f"{build_ms:.1f} ms ({8 * (N + 1 + qry.edge_mask.numel()) / 1e6:.1f}"
+        f" MB) where densify's A is {A.numel() * 4 / 1e9:.2f} GB")
     g = torch.Generator(device=device).manual_seed(0)
     rows = {}
     for direction in ("fwd", "bwd"):
+        row_ptr, col = graph.csr(direction)
+        read_rows = torch.unique(col[:nnz]).numel()   # x rows edges name
         At = A if direction == "fwd" else A.transpose(1, 2)
+        sparse = torch.sparse_csr_tensor(
+            row_ptr, col[:nnz], torch.ones(nnz, device=device), size=(N, N),
+            check_invariants=False)
         for H in (128, 256):
             x = torch.randn(S, P, H, device=device, generator=g)
-            got = sp.launch(direction, A, x, sizes)
-            want = sp.sized_plain(A, x, sizes, transpose=direction == "bwd")
+            got = sp.launch(direction, graph, x)
+            want = sp.sized_plain(row_ptr, col, x)
             e = (got - want).abs().max().item()
             rtol, atol = TOLS["float32"]
             torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+            torch.testing.assert_close(      # the yardstick's function
+                torch.sparse.mm(sparse, x.view(N, H)).view(S, P, H), want,
+                rtol=rtol, atol=atol)
             del got, want
-            ms = cuda_ms(lambda: sp.launch(direction, A, x, sizes))
-            plain_ms = cuda_ms(lambda: sp.sized_plain(
-                A, x, sizes, transpose=direction == "bwd"))
-            library_ms = cuda_ms(lambda: torch.bmm(At, x))
-            # what this data needs: the real edges' products; the live
-            # blocks of A and x read once, the whole output written once
+            ms = cuda_ms(lambda: sp.launch(direction, graph, x))
+            plain_ms = cuda_ms(lambda: sp.sized_plain(row_ptr, col, x))
+            library_ms = cuda_ms(lambda: torch.sparse.mm(sparse,
+                                                         x.view(N, H)))
+            dense_bmm_ms = cuda_ms(lambda: torch.bmm(At, x))
+            # what this data needs: the edges' products; the x rows they
+            # name and the indices read once, the whole output written once
             flops = 2.0 * nnz * H
-            nbytes = 4.0 * (live_sq + live_rows * H + S * P * H) + 4.0 * S
+            nbytes = 4.0 * (read_rows * H + N * H) + 4.0 * (N + 1 + nnz)
             t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_BYTES_S
-            rows[(direction, H)] = dict(
+            row = rows[(direction, H)] = dict(
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                dense_bmm_ms=dense_bmm_ms,
                 bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                max_abs_err=e, bound_gb=nbytes / 1e9,
-                gb_per_s=nbytes / (ms * 1e-3) / 1e9,
-                dense_tflops=2.0 * live_sq * H / (ms * 1e-3) / 1e12)
+                max_abs_err=e, bound_gb=nbytes / 1e9, x_rows_read=read_rows,
+                gb_per_s=nbytes / (ms * 1e-3) / 1e9)
             log(f"  {direction} H={H}: kernel {ms:.3f} ms "
-                f"({rows[(direction, H)]['gb_per_s']:.0f} GB/s of the "
-                f"bound's {nbytes / 1e9:.2f} GB; "
-                f"{rows[(direction, H)]['dense_tflops']:.2f} TFLOP/s of "
-                f"the live blocks' dense products), "
-                f"plain {plain_ms:.3f} ms, torch.bmm {library_ms:.3f} ms, "
-                f"bound {rows[(direction, H)]['bound_ms']:.3f} ms "
-                f"({rows[(direction, H)]['bound_by']}), max abs err {e:.3g}")
+                f"({row['gb_per_s']:.0f} GB/s of the bound's "
+                f"{nbytes / 1e9:.3f} GB; {100 * row['bound_ms'] / ms:.1f}% "
+                f"of the bound), plain {plain_ms:.3f} ms, torch.sparse.mm "
+                f"{library_ms:.3f} ms, torch.bmm {dense_bmm_ms:.3f} ms, "
+                f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
+                f"max abs err {e:.3g}")
             del x
+        del sparse
     del A
     torch.cuda.empty_cache()
-    return rows, f"S={S} P={P}"
+    return rows, f"S={S} P={P} nnz={nnz}"
 
 
 def cuda_equals_cpu(device):
@@ -424,15 +471,21 @@ def main():
     assert math.isfinite(trainer.learner.train_step(batch)["meta_loss"]
                          .item())
     per_step = dict(sp.launches)
-    # warm meta-steps, sized kernels vs dense torch.bmm, in turns
+    # warm meta-steps, sized kernels vs dense torch.bmm, in turns, each
+    # with its peak device memory
     dense = dense_learner(trainer, store)
     turns = {"sized": [], "dense": []}
+    peaks = {"sized": [], "dense": []}
     for which in ("sized", "dense", "dense", "sized"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         turns[which].append(step_seconds(
             trainer.learner if which == "sized" else dense, batch))
+        peaks[which].append(torch.cuda.max_memory_allocated() / 1e9)
     step_s = statistics.mean(turns["sized"])
     dense_s = statistics.mean(turns["dense"])
-    log(f"  warm meta-step seconds in turns: {turns}")
+    log(f"  warm meta-step seconds in turns: {turns}; peak device memory "
+        f"GB: {peaks}")
     breakdown = profile_step(trainer.learner, batch)
     del dense
     t1 = time.time()
@@ -460,6 +513,7 @@ def main():
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            "dense_bmm_ms": head["dense_bmm_ms"],
             "shape": f"{qry_shape} H=256 float32",
             "max_abs_err_bf16": errs[direction]["bfloat16"],
             "launches_per_meta_step": per_step[direction],
@@ -471,7 +525,8 @@ def main():
         "tasks_per_s": task_num / step_s, "eval_test_s": eval_s,
         "peak_gb": peak_gb, "buckets": buckets, "build_s": build_s,
         "step_compute_s": [r["compute_s"] for r in steps],
-        "dense_step_s": dense_s, "profile": breakdown,
+        "dense_step_s": dense_s, "step_s_turns": turns,
+        "step_peak_gb": peaks, "profile": breakdown,
         "result": dataclasses.asdict(result), "card": card}}))
     log(card)
     print(json.dumps({"ok": True, "device": {

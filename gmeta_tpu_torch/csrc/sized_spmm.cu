@@ -1,180 +1,248 @@
-// Size-aware block-diagonal SpMM for Hopper (sm_90a): both directions.
+// Size-aware block-diagonal aggregation for Hopper (sm_90a): both directions
+// as one gather over an edge list in CSR form.
 //
 // Replaces the two TPU kernel bodies behind the one pallas_call of
 // gmeta_tpu/ops/pallas_spmm.py:
-//   direction 0 <- `_fwd_kernel`: out[s] = A[s] @ x[s]    (GraphConv forward)
-//   direction 1 <- `_bwd_kernel`: out[s] = A[s]^T @ x[s]  (its transpose, the
-//                                  backward of every aggregation)
-// A is (S, P, P), x and out are (S, P, H), sizes is (S,) int32. Block s holds
-// n_s = sizes[s] live node rows. Both directions contract only over k < n_s
-// and write zeros to output rows >= n_s; on packed data, where A is zero
-// outside its live n_s x n_s block, that equals the full product with its
-// dead rows zeroed.
+//   `_fwd_kernel` (:39): out[s] = A[s] @ x[s]    (GraphConv forward)
+//   `_bwd_kernel` (:80): out[s] = A[s]^T @ x[s]  (its transpose, the backward
+//                                                 of every aggregation)
+// The TPU kernels read a dense (S, P, P) adjacency and skip its dead tiles.
+// Here A is never built: ops/sized_spmm.py turns a packed set's edge list
+// into CSRs over the flat rows N = S * P, one keyed by destination (the
+// forward) and one by source (the transpose), so one kernel serves both:
+//     out[r, :] = sum over e in [row_ptr[r], row_ptr[r + 1]) of x[col[e], :]
+// A row without edges, such as every dead row (>= n_s) of a packed bin, is
+// written as zeros, which is the TPU kernels' result on packed data.
 //
-// What bounds it on an H100: A is a 0/1 adjacency stored dense. At the
-// arxiv query shape (P = 1024, n ~ 0.78 P, H = 256, float32) a live block
-// holds well under 1% non-zeros, so the products the edges need (2 nnz H
-// FLOPs) are a tiny fraction of the bytes to read: the function is bound by
-// bytes, chiefly the n^2 elements of A per block (chip_smoke.py prints the
-// bound for its data). This kernel does the block's dense 2 n^2 H FLOPs on
-// the CUDA cores, about 2H/4 = 128 FLOP per byte of A, so its own design is
-// bound by operations, several times above the function's bound. The way to
-// that bound is to stop reading a dense, nearly empty A (a narrower type
-// for A, or aggregation from the edge list), not a faster dense product.
+// What bounds it on an H100: bytes. A is a 0/1 adjacency that holds 0.25%
+// non-zeros inside the live blocks at the arxiv query batch (N = 2.36 M
+// rows, nnz = 3.9 M, H = 256, float32), so the products the edges need,
+// 2 nnz H = 2 GFLOP, take 0.03 ms at 67 TFLOP/s. The bytes are x's
+// referenced rows read once (about 1.9 GB), the output written once
+// (2.4 GB) and the int32 indices (0.03 GB): about 1.3 ms at 3.35 TB/s
+// (chip_smoke.py prints the bound for its data). Tensor cores and TMA have
+// nothing to do here: there is no dense tile to multiply, and each gathered
+// row is a 16-byte-per-lane load that plain LDG.128 already serves.
 //
-// Design (a simple, correct first version): one thread block per
-// (subgraph s, 64-row tile, 64-column tile of H); S rides grid.x, which has
-// no 65,535 cap. A block whose row tile starts at or past n_s writes zeros
-// and returns, so dead tiles cost neither FLOPs nor reads of A. Live blocks
-// loop over 16-deep k-tiles up to n_s only, staging A and x tiles in shared
-// memory with masked loads (any P, any H, ragged n_s), and accumulate 4 x 4
-// outputs per thread in float32 registers with FMA on the CUDA cores. bf16
-// inputs are widened to float32 as they are staged. The transposed direction
-// reads A[s, k, m] instead of A[s, m, k]; the shared layout As[k][m] is the
-// same for both. Making it fast is later work, ordered by the measured time
-// against the bound.
+// Design:
+// - G lanes per destination row (G = 32 at H = 256 float32, 16 at H = 128),
+//   lanes across H with 16-byte loads (a float4, or 8 bf16), at most 8
+//   elements per lane per pass over H. Where H is not a multiple of the
+//   vector width (H = 1, 5, 50 are real widths of other presets) or x is not
+//   16-byte aligned, the same code runs on scalars; x is never padded.
+// - A 256-thread block owns 256 / G consecutive rows. It stages their
+//   row_ptr and the column indices of their edges in shared memory, one
+//   coalesced read each, so the groups' gathers do not wait on dependent
+//   index loads. A block whose rows have more than STAGE edges reads the
+//   rest of its indices from device memory.
+// - The grid walks the rows in order, so the blocks in flight cover a few
+//   consecutive bins, whose x rows (1 MB per bin at H = 256 float32) stay in
+//   the 50 MB L2 while the bins' edges gather from them: x is read from
+//   device memory about once. Output stores are streaming (evict-first), so
+//   the 2.4 GB of output does not push x out of L2.
+// - Bytes in flight come from occupancy, not from loads per thread: the
+//   launch bounds hold a thread to 32 registers, so 8 blocks (2048 threads)
+//   fill an SM, with UNROLL = 2 edges' loads in flight per group (rows have
+//   about 2 edges at arxiv). Four in flight and 44 registers was 8-28%
+//   slower (sweep_sized_spmm.py, PERF.md).
+// - Sums in float32 registers in edge order; bf16 is widened as it loads
+//   and rounded once as it stores. No atomics, so the result is
+//   deterministic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;        // output rows per block
-constexpr int BN = 64;        // output columns (of H) per block
-constexpr int BK = 16;        // contraction depth per stage
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int THREADS = 256;  // threads per block
+constexpr int STAGE = 2048;   // column indices a block stages in shared memory
+constexpr int UNROLL = 2;     // edges whose loads are in flight together
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// Vectors per lane per pass over H: 8 elements for the 16-byte paths (two
+// float4, one 8 x bf16), which keeps registers at float32's count for bf16.
+template <int VEC>
+__host__ __device__ constexpr int cpl() {
+  return VEC == 1 ? 2 : 8 / VEC;
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
+// Vector load (widened to float32) and streaming store of VEC elements.
+template <typename T, int VEC>
+struct Vec;
+
 template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+struct Vec<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+};
 
-template <typename T, bool TRANSPOSE>
+template <>
+struct Vec<__nv_bfloat16, 8> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&v)[8]) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(b[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&v)[8]) {
+    uint4 q;
+    __nv_bfloat162* b = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) b[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    __stcs(reinterpret_cast<uint4*>(p), q);
+  }
+};
+
+template <>
+struct Vec<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) {
+    v[0] = __ldg(p);
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) {
+    __stcs(p, v[0]);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16, 1> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&v)[1]) {
+    v[0] = __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&v)[1]) {
+    *p = __float2bfloat16(v[0]);
+  }
+};
+
+template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
-    sized_spmm_kernel(const T* __restrict__ A, const T* __restrict__ x,
-                      const int* __restrict__ sizes, T* __restrict__ out,
-                      int P, int H) {
-  const int s = blockIdx.x;
-  const int m0 = blockIdx.y * BM;
-  const int j0 = blockIdx.z * BN;
+    csr_gather_kernel(const int* __restrict__ row_ptr,
+                      const int* __restrict__ col, const T* __restrict__ x,
+                      T* __restrict__ out, int N, int H, int G) {
+  constexpr int CPL = cpl<VEC>();
+  __shared__ int rp[THREADS + 1];
+  __shared__ int cs[STAGE];
+  const int rows = THREADS / G;  // rows of this block
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int n = min(max(sizes[s], 0), P);
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows;
+  for (int i = tid; i <= rows; i += THREADS)
+    rp[i] = row_ptr[min(r0 + i, static_cast<long long>(N))];
+  __syncthreads();
+  const int e0 = rp[0];
+  const int staged = min(rp[rows] - e0, STAGE);
+  for (int i = tid; i < staged; i += THREADS) cs[i] = col[e0 + i];
+  __syncthreads();
 
-  const T* a = A + (size_t)s * P * P;
-  const T* xs = x + (size_t)s * P * H;
-  T* o = out + (size_t)s * P * H;
+  const int g = tid / G;
+  const int lane = tid % G;
+  const long long r = r0 + g;
+  if (r >= N) return;
+  const int a = rp[g];
+  const int b = rp[g + 1];
+  const int nv = H / VEC;  // vectors per row
+  T* o = out + static_cast<size_t>(r) * H;
 
-  if (m0 >= n) {  // dead row tile: zero-fill and stop
-    for (int idx = tid; idx < BM * BN; idx += THREADS) {
-      const int r = m0 + idx / BN;
-      const int c = j0 + idx % BN;
-      if (r < P && c < H) o[(size_t)r * H + c] = from_f32<T>(0.f);
+  for (int v0 = 0; v0 < nv; v0 += G * CPL) {  // passes over H
+    float acc[CPL][VEC];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[c][k] = 0.f;
+
+    for (int e = a; e < b; e += UNROLL) {
+      // UNROLL edges: indices first, then all their loads, then the sums in
+      // edge order
+      int j[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int eu = e + u;
+        j[u] = eu >= b ? -1 : (eu - e0 < STAGE ? cs[eu - e0] : col[eu]);
+      }
+      float v[UNROLL][CPL][VEC];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          const int vi = v0 + c * G + lane;
+          if (j[u] >= 0 && vi < nv) {
+            Vec<T, VEC>::load(x + static_cast<size_t>(j[u]) * H +
+                                  static_cast<size_t>(vi) * VEC,
+                              v[u][c]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) v[u][c][k] = 0.f;
+          }
+        }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (j[u] >= 0)
+#pragma unroll
+          for (int c = 0; c < CPL; ++c)
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) acc[c][k] += v[u][c][k];
     }
-    return;
-  }
-
-  __shared__ float As[BK][BM + 4];  // As[k][m]; padded against bank conflicts
-  __shared__ float Xs[BK][BN];      // Xs[k][j]
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < (BM * BK) / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      // neighbouring threads read neighbouring addresses: along k in the
-      // forward (A[s, m, k]), along m in the transpose (A[s, k, m])
-      const int kk = TRANSPOSE ? idx / BM : idx % BK;
-      const int mm = TRANSPOSE ? idx % BM : idx / BK;
-      const int m = m0 + mm;
-      const int k = k0 + kk;
-      float v = 0.f;
-      if (m < n && k < n)
-        v = to_f32(TRANSPOSE ? a[(size_t)k * P + m] : a[(size_t)m * P + k]);
-      As[kk][mm] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < (BK * BN) / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int kk = idx / BN;
-      const int jj = idx % BN;
-      const int k = k0 + kk;
-      const int j = j0 + jj;
-      Xs[kk][jj] = (k < n && j < H) ? to_f32(xs[(size_t)k * H + j]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[4], xv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) xv[j] = Xs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], xv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = j0 + tx + 16 * j;
-      if (r < P && c < H)
-        o[(size_t)r * H + c] = from_f32<T>(r < n ? acc[i][j] : 0.f);
+    for (int c = 0; c < CPL; ++c) {
+      const int vi = v0 + c * G + lane;
+      if (vi < nv) Vec<T, VEC>::store(o + static_cast<size_t>(vi) * VEC, acc[c]);
     }
   }
 }
 
+template <typename T, int VEC>
+void launch_vec(const int* row_ptr, const int* col, const void* x, void* out,
+                int N, int H, cudaStream_t stream) {
+  const int nv = H / VEC;
+  int G = 1;  // lanes per row: the fewest that cover H in cpl vectors each
+  while (G < 32 && G * cpl<VEC>() < nv) G *= 2;
+  const int rows = THREADS / G;
+  const unsigned blocks = static_cast<unsigned>((N + rows - 1) / rows);
+  csr_gather_kernel<T, VEC><<<blocks, THREADS, 0, stream>>>(
+      row_ptr, col, static_cast<const T*>(x), static_cast<T*>(out), N, H, G);
+}
+
 template <typename T>
-void launch(const void* A, const void* x, const int* sizes, void* out, int S,
-            int P, int H, int transpose, cudaStream_t stream) {
-  const dim3 grid(S, (P + BM - 1) / BM, (H + BN - 1) / BN);
-  const T* a = static_cast<const T*>(A);
-  const T* xs = static_cast<const T*>(x);
-  T* o = static_cast<T*>(out);
-  if (transpose)
-    sized_spmm_kernel<T, true><<<grid, THREADS, 0, stream>>>(a, xs, sizes, o,
-                                                            P, H);
+void launch(const int* row_ptr, const int* col, const void* x, void* out,
+            int N, int H, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (H % VEC == 0 && aligned)
+    launch_vec<T, VEC>(row_ptr, col, x, out, N, H, stream);
   else
-    sized_spmm_kernel<T, false><<<grid, THREADS, 0, stream>>>(a, xs, sizes,
-                                                             o, P, H);
+    launch_vec<T, 1>(row_ptr, col, x, out, N, H, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (A, x and out share it).
+// out (N, H) = the CSR (row_ptr (N + 1,), col) times x (N, H), both int32
+// indices; dtype: 0 = float32, 1 = bfloat16 (x and out share it).
 // Returns cudaGetLastError() after the launch: 0 when it was accepted.
-extern "C" int gmeta_sized_spmm(const void* A, const void* x,
-                                const int* sizes, void* out, int S, int P,
-                                int H, int transpose, int dtype,
-                                void* stream) {
-  if (S > 0 && P > 0 && H > 0) {
+extern "C" int gmeta_sized_spmm(const int* row_ptr, const int* col,
+                                const void* x, void* out, int N, int H,
+                                int dtype, void* stream) {
+  if (N > 0 && H > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
-      launch<float>(A, x, sizes, out, S, P, H, transpose, st);
+      launch<float>(row_ptr, col, x, out, N, H, st);
     else if (dtype == 1)
-      launch<__nv_bfloat16>(A, x, sizes, out, S, P, H, transpose, st);
+      launch<__nv_bfloat16>(row_ptr, col, x, out, N, H, st);
     else
       return static_cast<int>(cudaErrorInvalidValue);
   }

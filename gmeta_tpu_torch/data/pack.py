@@ -15,7 +15,9 @@ never cross bins), so message passing is (B,P,P)@(B,P,H) — see
 models/gcn.py — and B ~= ceil(sum n_k / P) instead of one P-slot per
 subgraph, so FLOPs and device bytes scale with TOTAL nodes, not
 S * max-size. The edge lists below are densified into A ONCE per task (a
-scalar scatter outside the inner loop), not per GCN layer.
+scalar scatter outside the inner loop), not per GCN layer; the size-aware
+path (ops/sized_spmm) instead sorts them into CSRs once per task and builds
+no A.
 
 Padding contract:
 - pad node slots: gid 0, node_mask 0
@@ -52,9 +54,7 @@ class SubgraphSet(NamedTuple):
                             #   for node tasks; second endpoint for link tasks)
     labels: np.ndarray      # (S,) int32
     bin_fill: np.ndarray = None  # (B,) int32 live node rows per bin (rows
-                            #   [0, fill) are real; the rest padding). Feeds
-                            #   the size-aware SpMM kernels (ops/sized_spmm),
-                            #   which contract and write only live rows.
+                            #   [0, fill) are real; the rest padding)
 
     @property
     def num_subgraphs(self) -> int:

@@ -68,20 +68,20 @@ def make_inner_loop(layer_spec: Sequence[Tuple[str, tuple]],
         T = task.spt.node_gid.shape[0]
         meta = torch.is_grad_enabled() and any(p.requires_grad
                                                for p in params)
-        # Adjacency + norm + the input-feature gather are constant across
-        # inner steps: built ONCE here.
-        dense_spt = precompute(task.spt, compute_dtype, feats=feats)
-        dense_qry = precompute(task.qry, compute_dtype, feats=feats)
+        # Adjacency (or edge lists) + norm + the input-feature gather are
+        # constant across inner steps: built ONCE here.
+        graph_spt = precompute(task.spt, compute_dtype, feats=feats, agg=agg)
+        graph_qry = precompute(task.qry, compute_dtype, feats=feats, agg=agg)
 
         def spt(w):
-            logits = forward(w, task.spt, feats, layer_spec, dense=dense_spt,
+            logits = forward(w, task.spt, feats, layer_spec, graph=graph_spt,
                              compute_dtype=compute_dtype, agg=agg)
             loss, _, protos = proto_loss_spt(logits, task.spt.labels,
                                              proto_classes)
             return loss, protos
 
         def qry(w, protos):
-            logits = forward(w, task.qry, feats, layer_spec, dense=dense_qry,
+            logits = forward(w, task.qry, feats, layer_spec, graph=graph_qry,
                              compute_dtype=compute_dtype, agg=agg)
             return proto_loss_qry(logits, task.qry.labels, protos)
 
@@ -194,7 +194,7 @@ def _set_to(sg: SubgraphSet, device) -> SubgraphSet:
 
 def batch_to(batch: TaskBatch, device) -> TaskBatch:
     """A TaskBatch (numpy or torch, leading task axis) as device tensors:
-    index fields int64, bin_fill int32 (the kernels' sizes), masks float32."""
+    index fields int64, bin_fill int32, masks float32."""
     return TaskBatch(spt=_set_to(batch.spt, device),
                      qry=_set_to(batch.qry, device))
 

@@ -23,8 +23,10 @@ is how the MAML inner loop runs all tasks' fast weights at once. The
 parameter layout is the JAX package's flat tuple (W, b, W, b, ...), so
 conversion between the two packages is the identity (convert.py).
 
-`precompute` builds (A, norm, h0) once per task set; they are constant
-across the MAML inner loop, so no scatter or gather runs inside it.
+`precompute` builds the aggregation operand (the dense adjacency, or for
+agg="sized" the edge lists as CSRs), the norm and h0 once per task set; they
+are constant across the MAML inner loop, so no scatter or gather runs inside
+it.
 """
 
 from __future__ import annotations
@@ -36,17 +38,20 @@ import torch
 from torch import nn
 
 from gmeta_tpu_torch.data.pack import SubgraphSet
-from gmeta_tpu_torch.ops.sized_spmm import aggregate_sized
+from gmeta_tpu_torch.ops.sized_spmm import (SizedGraph, aggregate_sized,
+                                            sized_graph)
 from gmeta_tpu_torch.ops.spmm import (aggregate_dense, degrees_from_dense,
                                       densify)
 
 
-class DenseGraph(NamedTuple):
+class GraphOperands(NamedTuple):
     """Per-task-set precomputed aggregation operands (constant over inner
-    steps)."""
-    A: torch.Tensor      # (T*B, P, P) block-diagonal adjacency over bins
+    steps): the dense adjacency for agg="dense" or the CSRs for
+    agg="sized", never both."""
     norm: torch.Tensor   # (T, B, P, 1) clamp(deg,1)^-1/2
     h0: torch.Tensor = None  # (T, B, P, F) gathered+masked input features
+    A: torch.Tensor = None   # (T*B, P, P) block-diagonal adjacency over bins
+    sized: SizedGraph = None  # both CSRs over the T*B*P flat rows
 
 
 def init_params(generator: torch.Generator,
@@ -115,49 +120,58 @@ def gather_features(sg: SubgraphSet, feats: torch.Tensor,
 
 
 def precompute(sg: SubgraphSet, compute_dtype=torch.float32,
-               feats: torch.Tensor = None) -> DenseGraph:
-    """Build the block-diagonal adjacency + symmetric norm — and, when
-    `feats` is given, the gathered input features — once per task set."""
+               feats: torch.Tensor = None,
+               agg: str = "dense") -> GraphOperands:
+    """Build the aggregation operand + symmetric norm — and, when `feats` is
+    given, the gathered input features — once per task set. agg="dense"
+    builds the block-diagonal adjacency; agg="sized" builds the edge lists'
+    CSRs and no adjacency, its degrees counted from the row pointers."""
     T, B, P = sg.node_gid.shape
-    A = densify(sg.edge_src, sg.edge_dst, sg.edge_mask, B, P,
-                dtype=compute_dtype)                       # (T, B, P, P)
-    deg = degrees_from_dense(A)
+    A = sized = None
+    if agg == "sized":
+        sized = sized_graph(sg.edge_src, sg.edge_dst, sg.edge_mask, B, P)
+        deg = sized.degrees().view(T, B, P).to(compute_dtype)
+    elif agg == "dense":
+        A = densify(sg.edge_src, sg.edge_dst, sg.edge_mask, B, P,
+                    dtype=compute_dtype)                   # (T, B, P, P)
+        deg = degrees_from_dense(A)
+        A = A.view(T * B, P, P)
+    else:
+        raise ValueError(f"agg must be 'dense' or 'sized', got {agg!r}")
     norm = torch.rsqrt(deg.clamp(min=1.0))[..., None]       # clamp(min=1)^-.5
     h0 = None if feats is None else gather_features(sg, feats, compute_dtype)
-    return DenseGraph(A=A.view(T * B, P, P), norm=norm.to(compute_dtype),
-                      h0=h0)
+    return GraphOperands(norm=norm.to(compute_dtype), h0=h0, A=A, sized=sized)
 
 
 def forward(params, sg: SubgraphSet, feats: torch.Tensor,
             layer_spec: Sequence[Tuple[str, tuple]],
-            dense: DenseGraph = None,
+            graph: GraphOperands = None,
             compute_dtype=torch.float32,
             agg: str = "dense") -> torch.Tensor:
     """Logits (T, S, out), float32, for a batch of packed subgraph sets.
 
     `agg` selects the aggregation: "dense" is a batched matmul over full
-    (P, P) blocks; "sized" is the size-aware SpMM (ops/sized_spmm), which on
-    a CUDA tensor launches the hand-written kernel and on a CPU tensor runs
-    its plain version — the tensor's device decides, nothing else."""
+    (P, P) blocks; "sized" is the size-aware aggregation over the edge lists
+    (ops/sized_spmm), which on a CUDA tensor launches the hand-written
+    kernel and on a CPU tensor runs its plain version — the tensor's device
+    decides, nothing else. `graph` is `precompute(sg, ..., agg=agg)`."""
     link_pred = layer_spec[-1][0] == "LinkPred"
     T, B, P = sg.node_gid.shape
 
-    if dense is None:
-        dense = precompute(sg, compute_dtype)
-    A, norm = dense.A, dense.norm
+    if graph is None:
+        graph = precompute(sg, compute_dtype, agg=agg)
+    norm = graph.norm
 
     if agg == "sized":
-        sizes = sg.bin_fill.reshape(T * B).to(torch.int32).contiguous()
-
         def _aggregate(h_):
-            return aggregate_sized(A, h_, sizes)
+            return aggregate_sized(graph.sized, h_)
     elif agg == "dense":
         def _aggregate(h_):
-            return aggregate_dense(A, h_)
+            return aggregate_dense(graph.A, h_)
     else:
         raise ValueError(f"agg must be 'dense' or 'sized', got {agg!r}")
 
-    h = dense.h0 if dense.h0 is not None else gather_features(
+    h = graph.h0 if graph.h0 is not None else gather_features(
         sg, feats, compute_dtype)
 
     idx = 0

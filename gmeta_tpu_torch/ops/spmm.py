@@ -5,8 +5,9 @@ out[v] = sum over edges (u -> v) of h[u]. The packing (data/pack.py) makes
 the batch adjacency block-diagonal with S blocks of <= P x P, so the
 adjacency is built ONCE per task by a scalar scatter of E edge weights
 (`densify`), and every GCN layer, inner step and backward pass is then a
-batched matrix product: `aggregate_dense` here, or the size-aware kernels of
-ops/sized_spmm.py. Counterpart of gmeta_tpu/ops/spmm.py:29-54; its
+batched matrix product, `aggregate_dense`. The size-aware path
+(ops/sized_spmm.py) builds no adjacency: it gathers over the edge lists.
+Counterpart of gmeta_tpu/ops/spmm.py:29-54; its
 segment-sum, ELL and SDDMM paths come in a later slice.
 """
 

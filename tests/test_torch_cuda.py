@@ -1,16 +1,18 @@
-"""The CUDA kernels of gmeta_tpu_torch against their plain versions, on the
-card. Marked `cuda`: they skip where there is no CUDA device (the kernels
-have no CPU mode; the CPU tests hold the plain versions against the JAX
-package). This file imports neither jax nor the JAX package, so it also runs
-where those are absent:
+"""The CUDA kernel of gmeta_tpu_torch against its plain version, on the
+card. Marked `cuda`: they skip where there is no CUDA device (the kernel has
+no CPU mode; the CPU tests hold the plain version against the JAX package).
+This file imports neither jax nor the JAX package, so it also runs where
+those are absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
 from gmeta_tpu_torch.ops import sized_spmm
+from gmeta_tpu_torch.ops.spmm import densify
 
 pytestmark = pytest.mark.cuda
 
@@ -18,67 +20,114 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the sized_spmm kernels run only "
+        pytest.skip("needs an NVIDIA GPU: the sized_spmm kernel runs only "
                     "on CUDA")
     return torch.device("cuda")
 
 
-def _packed(S, P, H, sizes, dtype, device, seed=0):
-    g = torch.Generator().manual_seed(seed)
-    A = torch.zeros(S, P, P)
-    for s, n in enumerate(sizes):
-        A[s, :n, :n] = (torch.rand(n, n, generator=g) < 0.05).float()
-    h = torch.randn(S, P, H, generator=g)
-    return (A.to(device, dtype), h.to(device, dtype),
-            torch.tensor(sizes, dtype=torch.int32, device=device))
-
-
-# f32: sums of up to P products in another order; bf16: one bf16 ulp of
-# the float32 sum (2^-7 relative), as in tests/test_torch_spmm.py
-TOLS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (8e-3, 8e-3)}
+def _packed(P, sizes, H, dtype, device, seed=0):
+    """One packed set: edges inside each bin's live corner at 5% density,
+    a fifth of them duplicated, pad edges at the end. In the fullest bin
+    row 1 has 40 in-edges (more than a warp's lanes) and row 2 has 3000
+    (more than a block's index stage), and row 3 has 3000 out-edges, which
+    the transpose gathers. Returns the graph, x (S, P, H) and the dense
+    adjacency (S, P, P) float32. x holds small integers, so every partial
+    sum is exact in float32 (and the result in bf16 rounds the same exact
+    sum): any summation order gives the same bits, and the comparisons
+    below are exact."""
+    rng = np.random.RandomState(seed)
+    S = len(sizes)
+    src, dst = [], []
+    for b, n in enumerate(sizes):
+        d, s = np.nonzero(rng.rand(n, n) < 0.05)
+        reps = 1 + (rng.rand(d.size) < 0.2)
+        dst.append(b * P + np.repeat(d, reps))
+        src.append(b * P + np.repeat(s, reps))
+    full = int(np.argmax(sizes))
+    base, n = full * P, sizes[full]
+    for row, count in ((1, 40), (2, 3000)):
+        dst.append(np.full(count, base + row))
+        src.append(base + rng.randint(0, n, count))
+    dst.append(base + rng.randint(0, n, 3000))
+    src.append(np.full(3000, base + 3))
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    order = np.argsort(dst, kind="stable")
+    n_pad = 16
+    src = np.concatenate([src[order], np.zeros(n_pad, np.int64)])
+    dst = np.concatenate([dst[order], np.full(n_pad, S * P - 1)])
+    mask = np.concatenate([np.ones(order.size), np.zeros(n_pad)])
+    e = [torch.from_numpy(a).to(device) for a in (src, dst, mask)]
+    graph = sized_spmm.sized_graph(e[0], e[1], e[2].float(), S, P)
+    A = densify(e[0], e[1], e[2].float(), S, P)
+    x = torch.from_numpy(rng.randint(-8, 9, (S, P, H)).astype(np.float32))
+    return graph, x.to(device, dtype), A
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H", [1, 5, 50, 128, 256])
 def test_kernels_match_plain(cuda, H, dtype):
     sizes = [0, 1, 127, 129, 512]
-    A, h, sz = _packed(len(sizes), 512, H, sizes, dtype, cuda, seed=H)
-    for direction in ("fwd", "bwd"):
+    graph, x, A = _packed(512, sizes, H, dtype, cuda, seed=H)
+    assert int(graph.degrees().max()) > 2048
+    for direction, At in (("fwd", A), ("bwd", A.transpose(1, 2))):
         before = sized_spmm.launches[direction]
-        got = sized_spmm.launch(direction, A, h, sz)
+        got = sized_spmm.launch(direction, graph, x)
         torch.cuda.synchronize()
         assert sized_spmm.launches[direction] == before + 1
-        want = sized_spmm.sized_plain(A, h, sz, transpose=direction == "bwd")
-        rtol, atol = TOLS[dtype]
-        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                                   atol=atol)
+        assert got.dtype == dtype and got.shape == x.shape
+        want = sized_spmm.sized_plain(*graph.csr(direction), x)
+        assert torch.equal(got, want)
+        for s, n in enumerate(sizes):
+            assert not got[s, n:].any()            # dead rows are zero
+        if dtype == torch.float32:                 # the function itself
+            assert torch.equal(got, torch.bmm(At, x))
+
+
+def test_misaligned_input_matches_plain(cuda):
+    """x at a 4-byte offset cannot take 16-byte loads: the scalar path."""
+    graph, x, _ = _packed(256, [256, 100], 128, torch.float32, cuda)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    x_off = flat[1:].view_as(x)
+    x_off.copy_(x)
+    assert x_off.data_ptr() % 16 != 0 and x_off.is_contiguous()
+    for direction in ("fwd", "bwd"):
+        assert torch.equal(sized_spmm.launch(direction, graph, x_off),
+                           sized_spmm.sized_plain(*graph.csr(direction), x))
 
 
 def test_double_backward_matches_plain(cuda):
-    A, h, sz = _packed(3, 256, 16, [256, 100, 0], torch.float32, cuda)
+    graph, h, _ = _packed(256, [256, 100, 0], 16, torch.float32, cuda)
+    h = h / 64                 # keeps the three inner steps from diverging
+
+    def plain(g, x):
+        return sized_spmm.sized_plain(*g.csr("fwd"), x)
 
     def meta_grad(agg):
         w0 = torch.tensor(1.0, device=cuda, requires_grad=True)
         w = w0
         for _ in range(3):
-            inner = agg(A, h * w, sz).pow(2).mean()
+            inner = agg(graph, h * w).pow(2).mean()
             g, = torch.autograd.grad(inner, w, create_graph=True)
             w = w - 0.1 * g
-        return torch.autograd.grad(agg(A, h * w, sz).sum(), w0)[0]
+        return torch.autograd.grad(agg(graph, h * w).sum(), w0)[0]
 
+    before = dict(sized_spmm.launches)
     got = meta_grad(sized_spmm.aggregate_sized)
-    want = meta_grad(lambda A_, x, s: sized_spmm.sized_plain(A_, x, s))
+    assert all(sized_spmm.launches[k] > before[k] for k in before)
+    want = meta_grad(plain)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
 
 
 def test_wrapper_rejects_bad_inputs(cuda):
-    A, h, sz = _packed(2, 128, 8, [128, 64], torch.float32, cuda)
+    graph, h, _ = _packed(128, [128, 64], 8, torch.float32, cuda)
     with pytest.raises(TypeError):
-        sized_spmm.launch("fwd", A, h.to(torch.bfloat16), sz)
+        sized_spmm.launch("fwd", graph, h.half())
     with pytest.raises(TypeError):
-        sized_spmm.launch("fwd", A, h, sz.long())
+        sized_spmm.launch("fwd", graph._replace(col=graph.col.long()), h)
     with pytest.raises(ValueError):
-        sized_spmm.launch("fwd", A, h.transpose(1, 2).contiguous()
-                          .transpose(1, 2), sz)
+        sized_spmm.launch("fwd", graph, h.transpose(1, 2).contiguous()
+                          .transpose(1, 2))
     with pytest.raises(ValueError):
-        sized_spmm.launch("fwd", A, h.cpu(), sz)
+        sized_spmm.launch("fwd", graph, h[:1])
+    with pytest.raises(ValueError):
+        sized_spmm.launch("fwd", graph, h.cpu())

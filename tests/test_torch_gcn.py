@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from gmeta_tpu.config import Config as JConfig
 from gmeta_tpu.config import build_model_config as j_build
@@ -79,6 +80,45 @@ def test_forward_matches_jax(link_pred, h, hidden, agg):
     np.testing.assert_allclose(
         gcn.forward(per_task, tb, torch.from_numpy(store.features), spec,
                     agg=agg).numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+class _Sizes(TorchDispatchMode):
+    """Records the element count of every tensor an op returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.numels = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.numels += [t.numel() for t in
+                        torch.utils._pytree.tree_leaves(out)
+                        if isinstance(t, torch.Tensor)]
+        return out
+
+
+def test_precompute_sized_builds_no_dense_adjacency():
+    """agg="sized" builds the CSRs and degrees, and no tensor as large as
+    one bin's P x P block; its norm equals the dense path's, and so do the
+    logits."""
+    store, sets, stacked = _packed_tasks(False, 2, seed=4)
+    tb = batch_to(TaskBatch(spt=stacked, qry=stacked), "cpu").spt
+    T, B, P = tb.node_gid.shape
+    assert P * P > tb.edge_src.numel() and P * P > T * B * P + 1
+    with _Sizes() as sizes:
+        ops = gcn.precompute(tb, agg="sized")
+    assert sizes.numels and max(sizes.numels) < P * P
+    assert ops.A is None and ops.sized is not None
+    dense = gcn.precompute(tb, agg="dense")
+    assert dense.sized is None and dense.A.shape == (T * B, P, P)
+    torch.testing.assert_close(ops.norm, dense.norm, rtol=0, atol=0)
+    spec = build_model_config(Config(h=2, hidden_dim=16), store.feat_dim, 3)
+    params = gcn.init_params(torch.Generator().manual_seed(0), spec)
+    feats = torch.from_numpy(store.features)
+    torch.testing.assert_close(
+        gcn.forward(params, tb, feats, spec, graph=ops, agg="sized"),
+        gcn.forward(params, tb, feats, spec, graph=dense, agg="dense"),
+        rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("input_dim,hidden,labels,link_pred,expected", [

@@ -1,5 +1,6 @@
-"""The port stands alone: neither gmeta_tpu_torch nor chip_smoke.py imports
-jax, optax or the JAX package, and a port train step leaves them unloaded."""
+"""The port stands alone: neither gmeta_tpu_torch nor its GPU scripts
+(chip_smoke.py, sweep_sized_spmm.py) import jax, optax or the JAX package,
+and a port train step leaves them unloaded."""
 
 import ast
 import os
@@ -23,7 +24,7 @@ def _imported_roots(path):
 
 def test_no_jax_imports_in_port_sources():
     files = sorted((ROOT / "gmeta_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "sweep_sized_spmm.py"]
     assert len(files) > 15
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
