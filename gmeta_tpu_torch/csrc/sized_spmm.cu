@@ -24,27 +24,25 @@
 // nothing to do here: there is no dense tile to multiply, and each gathered
 // row is a 16-byte-per-lane load that plain LDG.128 already serves.
 //
-// Design:
+// Design (sweep_sized_spmm.py times the alternatives named here; PERF.md
+// has the numbers):
 // - G lanes per destination row (G = 32 at H = 256 float32, 16 at H = 128),
 //   lanes across H with 16-byte loads (a float4, or 8 bf16), at most 8
 //   elements per lane per pass over H. Where H is not a multiple of the
 //   vector width (H = 1, 5, 50 are real widths of other presets) or x is not
 //   16-byte aligned, the same code runs on scalars; x is never padded.
-// - A 256-thread block owns 256 / G consecutive rows. It stages their
-//   row_ptr and the column indices of their edges in shared memory, one
-//   coalesced read each, so the groups' gathers do not wait on dependent
-//   index loads. A block whose rows have more than STAGE edges reads the
-//   rest of its indices from device memory.
+// - A group reads its row's two row pointers and its edges' column indices
+//   straight from device memory: every lane of the group reads the same
+//   word, one broadcast load, and a row has about 2 edges at arxiv. Staging
+//   a block's indices in shared memory first (one coalesced read each, two
+//   barriers) was slower, so the kernel uses no shared memory.
 // - The grid walks the rows in order, so the blocks in flight cover a few
 //   consecutive bins, whose x rows (1 MB per bin at H = 256 float32) stay in
 //   the 50 MB L2 while the bins' edges gather from them: x is read from
-//   device memory about once. Output stores are streaming (evict-first), so
-//   the 2.4 GB of output does not push x out of L2.
-// - Bytes in flight come from occupancy, not from loads per thread: the
-//   launch bounds hold a thread to 32 registers, so 8 blocks (2048 threads)
-//   fill an SM, with UNROLL = 2 edges' loads in flight per group (rows have
-//   about 2 edges at arxiv). Four in flight and 44 registers was 8-28%
-//   slower (sweep_sized_spmm.py, PERF.md).
+//   device memory about once. Output stores are streaming (evict-first).
+// - UNROLL = 2 edges' loads in flight per group, at 40 registers a thread.
+//   Four in flight (more registers, fewer threads per SM), or 32 registers
+//   for a full SM, were slower.
 // - Sums in float32 registers in edge order; bf16 is widened as it loads
 //   and rounded once as it stores. No atomics, so the result is
 //   deterministic.
@@ -56,7 +54,6 @@
 namespace {
 
 constexpr int THREADS = 256;  // threads per block
-constexpr int STAGE = 2048;   // column indices a block stages in shared memory
 constexpr int UNROLL = 2;     // edges whose loads are in flight together
 
 // Vectors per lane per pass over H: 8 elements for the 16-byte paths (two
@@ -135,25 +132,12 @@ __global__ void __launch_bounds__(THREADS)
                       const int* __restrict__ col, const T* __restrict__ x,
                       T* __restrict__ out, int N, int H, int G) {
   constexpr int CPL = cpl<VEC>();
-  __shared__ int rp[THREADS + 1];
-  __shared__ int cs[STAGE];
-  const int rows = THREADS / G;  // rows of this block
-  const int tid = threadIdx.x;
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows;
-  for (int i = tid; i <= rows; i += THREADS)
-    rp[i] = row_ptr[min(r0 + i, static_cast<long long>(N))];
-  __syncthreads();
-  const int e0 = rp[0];
-  const int staged = min(rp[rows] - e0, STAGE);
-  for (int i = tid; i < staged; i += THREADS) cs[i] = col[e0 + i];
-  __syncthreads();
-
-  const int g = tid / G;
-  const int lane = tid % G;
-  const long long r = r0 + g;
+  const long long r =
+      (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) / G;
+  const int lane = threadIdx.x % G;
   if (r >= N) return;
-  const int a = rp[g];
-  const int b = rp[g + 1];
+  const int a = row_ptr[r];
+  const int b = row_ptr[r + 1];
   const int nv = H / VEC;  // vectors per row
   T* o = out + static_cast<size_t>(r) * H;
 
@@ -171,7 +155,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int eu = e + u;
-        j[u] = eu >= b ? -1 : (eu - e0 < STAGE ? cs[eu - e0] : col[eu]);
+        j[u] = eu < b ? col[eu] : -1;
       }
       float v[UNROLL][CPL][VEC];
 #pragma unroll

@@ -6,7 +6,7 @@ GPU.
 
 Each variant is gmeta_tpu_torch/csrc/sized_spmm.cu with some of its
 constants replaced (edges in flight per group, blocks per SM in the launch
-bounds, threads per block, the index stage, the store), compiled by nvcc
+bounds, threads per block, the store), compiled by nvcc
 with the port's flags into build/sweep_sized_spmm/ and loaded with ctypes.
 All run the forward CSR of chip_smoke.py's arxiv query batch (its data and
 seed), float32 and bf16, H = 128 and 256. Each is checked against the plain
@@ -23,17 +23,13 @@ from pathlib import Path
 
 from chip_smoke import HBM_BYTES_S, arxiv_data, card_line, cuda_ms
 
-MIN_BLOCKS = ("__launch_bounds__(THREADS)",
-              "__launch_bounds__(THREADS, 2048 / THREADS)")
-NO_STAGE = ("constexpr int STAGE = 2048;", "constexpr int STAGE = 1;")
-UNROLL_4 = ("constexpr int UNROLL = 2;", "constexpr int UNROLL = 4;")
 VARIANTS = {
     "committed": [],
-    "unroll 4 (PR 2's first)": [UNROLL_4],
+    "unroll 4": [("constexpr int UNROLL = 2;", "constexpr int UNROLL = 4;")],
     "unroll 1": [("constexpr int UNROLL = 2;", "constexpr int UNROLL = 1;")],
-    "32 registers (a full SM)": [MIN_BLOCKS],
-    "no index stage": [NO_STAGE],
-    "32 registers, no index stage": [MIN_BLOCKS, NO_STAGE],
+    "32 registers (a full SM)": [
+        ("__launch_bounds__(THREADS)",
+         "__launch_bounds__(THREADS, 2048 / THREADS)")],
     "128 threads": [("constexpr int THREADS = 256;",
                      "constexpr int THREADS = 128;")],
     "plain float32 store": [
