@@ -40,9 +40,9 @@
 //   consecutive bins, whose x rows (1 MB per bin at H = 256 float32) stay in
 //   the 50 MB L2 while the bins' edges gather from them: x is read from
 //   device memory about once. Output stores are streaming (evict-first).
-// - UNROLL = 2 edges' loads in flight per group, at 40 registers a thread.
-//   Four in flight (more registers, fewer threads per SM), or 32 registers
-//   for a full SM, were slower.
+// - UNROLL = 2 edges' loads in flight per group, and the launch bounds hold
+//   a thread to 32 registers, so 2048 threads fill an SM. Four in flight
+//   was slower; so was the bf16 path at its natural 40 registers.
 // - Sums in float32 registers in edge order; bf16 is widened as it loads
 //   and rounded once as it stores. No atomics, so the result is
 //   deterministic.
@@ -54,6 +54,7 @@
 namespace {
 
 constexpr int THREADS = 256;  // threads per block
+constexpr int MIN_BLOCKS = 2048 / THREADS;  // a full SM: 32 registers
 constexpr int UNROLL = 2;     // edges whose loads are in flight together
 
 // Vectors per lane per pass over H: 8 elements for the 16-byte paths (two
@@ -127,7 +128,7 @@ struct Vec<__nv_bfloat16, 1> {
 };
 
 template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     csr_gather_kernel(const int* __restrict__ row_ptr,
                       const int* __restrict__ col, const T* __restrict__ x,
                       T* __restrict__ out, int N, int H, int G) {

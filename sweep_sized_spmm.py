@@ -27,9 +27,9 @@ VARIANTS = {
     "committed": [],
     "unroll 4": [("constexpr int UNROLL = 2;", "constexpr int UNROLL = 4;")],
     "unroll 1": [("constexpr int UNROLL = 2;", "constexpr int UNROLL = 1;")],
-    "32 registers (a full SM)": [
-        ("__launch_bounds__(THREADS)",
-         "__launch_bounds__(THREADS, 2048 / THREADS)")],
+    "no min blocks (bf16 at 40 registers)": [
+        ("__launch_bounds__(THREADS, MIN_BLOCKS)",
+         "__launch_bounds__(THREADS)")],
     "128 threads": [("constexpr int THREADS = 256;",
                      "constexpr int THREADS = 128;")],
     "plain float32 store": [
