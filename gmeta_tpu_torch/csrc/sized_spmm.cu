@@ -24,8 +24,8 @@
 // nothing to do here: there is no dense tile to multiply, and each gathered
 // row is a 16-byte-per-lane load that plain LDG.128 already serves.
 //
-// Design (sweep_sized_spmm.py times the alternatives named here; PERF.md
-// has the numbers):
+// Design (PERF.md has the times of the alternatives named here, from
+// sweep_sized_spmm.py):
 // - G lanes per destination row (G = 32 at H = 256 float32, 16 at H = 128),
 //   lanes across H with 16-byte loads (a float4, or 8 bf16), at most 8
 //   elements per lane per pass over H. Where H is not a multiple of the
@@ -40,9 +40,11 @@
 //   consecutive bins, whose x rows (1 MB per bin at H = 256 float32) stay in
 //   the 50 MB L2 while the bins' edges gather from them: x is read from
 //   device memory about once. Output stores are streaming (evict-first).
-// - UNROLL = 2 edges' loads in flight per group, and the launch bounds hold
-//   a thread to 32 registers, so 2048 threads fill an SM. Four in flight
-//   was slower; so was the bf16 path at its natural 40 registers.
+// - A group sums its row's edges one at a time; the bytes in flight come
+//   from occupancy instead: the launch bounds hold a thread to 32
+//   registers, so 2048 threads fill an SM. Loading two or four edges'
+//   rows at once before summing them was slower, and so was the bf16 path
+//   at its natural 40 registers.
 // - Sums in float32 registers in edge order; bf16 is widened as it loads
 //   and rounded once as it stores. No atomics, so the result is
 //   deterministic.
@@ -55,7 +57,6 @@ namespace {
 
 constexpr int THREADS = 256;  // threads per block
 constexpr int MIN_BLOCKS = 2048 / THREADS;  // a full SM: 32 registers
-constexpr int UNROLL = 2;     // edges whose loads are in flight together
 
 // Vectors per lane per pass over H: 8 elements for the 16-byte paths (two
 // float4, one 8 x bf16), which keeps registers at float32's count for bf16.
@@ -149,37 +150,18 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 #pragma unroll
       for (int k = 0; k < VEC; ++k) acc[c][k] = 0.f;
 
-    for (int e = a; e < b; e += UNROLL) {
-      // UNROLL edges: indices first, then all their loads, then the sums in
-      // edge order
-      int j[UNROLL];
+    for (int e = a; e < b; ++e) {
+      const T* src = x + static_cast<size_t>(col[e]) * H;
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int eu = e + u;
-        j[u] = eu < b ? col[eu] : -1;
-      }
-      float v[UNROLL][CPL][VEC];
+      for (int c = 0; c < CPL; ++c) {
+        const int vi = v0 + c * G + lane;
+        if (vi < nv) {
+          float v[VEC];
+          Vec<T, VEC>::load(src + static_cast<size_t>(vi) * VEC, v);
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u)
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) {
-          const int vi = v0 + c * G + lane;
-          if (j[u] >= 0 && vi < nv) {
-            Vec<T, VEC>::load(x + static_cast<size_t>(j[u]) * H +
-                                  static_cast<size_t>(vi) * VEC,
-                              v[u][c]);
-          } else {
-#pragma unroll
-            for (int k = 0; k < VEC; ++k) v[u][c][k] = 0.f;
-          }
+          for (int k = 0; k < VEC; ++k) acc[c][k] += v[k];
         }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u)
-        if (j[u] >= 0)
-#pragma unroll
-          for (int c = 0; c < CPL; ++c)
-#pragma unroll
-            for (int k = 0; k < VEC; ++k) acc[c][k] += v[u][c][k];
+      }
     }
 
 #pragma unroll

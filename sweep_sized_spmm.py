@@ -5,8 +5,8 @@ GPU.
     python3 sweep_sized_spmm.py
 
 Each variant is gmeta_tpu_torch/csrc/sized_spmm.cu with some of its
-constants replaced (edges in flight per group, blocks per SM in the launch
-bounds, threads per block, the store), compiled by nvcc
+constants replaced (blocks per SM in the launch bounds, threads per
+block, the store), compiled by nvcc
 with the port's flags into build/sweep_sized_spmm/ and loaded with ctypes.
 All run the forward CSR of chip_smoke.py's arxiv query batch (its data and
 seed), float32 and bf16, H = 128 and 256. Each is checked against the plain
@@ -25,9 +25,7 @@ from chip_smoke import HBM_BYTES_S, arxiv_data, card_line, cuda_ms
 
 VARIANTS = {
     "committed": [],
-    "unroll 4": [("constexpr int UNROLL = 2;", "constexpr int UNROLL = 4;")],
-    "unroll 1": [("constexpr int UNROLL = 2;", "constexpr int UNROLL = 1;")],
-    "no min blocks (bf16 at 40 registers)": [
+    "no min blocks": [
         ("__launch_bounds__(THREADS, MIN_BLOCKS)",
          "__launch_bounds__(THREADS)")],
     "128 threads": [("constexpr int THREADS = 256;",
