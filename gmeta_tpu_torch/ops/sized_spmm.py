@@ -26,6 +26,7 @@ show that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -79,7 +80,7 @@ def sized_graph(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     destination's bin as `densify` clamps it. Edges with mask 0, such as
     the pad edges (src 0, dst B*P-1), are left out, not weighted by 0, so a
     NaN in a row they name cannot reach the output."""
-    n_lead = edge_dst.reshape(-1, edge_dst.shape[-1]).shape[0]
+    n_lead = math.prod(edge_dst.shape[:-1])
     dst = edge_dst.reshape(n_lead, -1).long()
     src = edge_src.reshape(n_lead, -1).long()
     start = dst // P * P                          # first slot of dst's bin
