@@ -15,7 +15,8 @@ Phases; any failure raises and the script exits non-zero:
                 the backward through SizedAgg, and a double backward.
   4. data     — the arxiv-scale synthetic graph (170k nodes, degree 28,
                 128 features, 15 classes, 1000-node subgraph cap) and its
-                episodes, built with the port's numpy host layer.
+                episodes (192 train tasks, 48 val and 48 test), built with
+                the port's numpy host layer.
   5. timing   — both kernels at this run's arxiv query batch (72 bins per
                 task x the meta-step's tasks, P = 1024, the batch's real
                 edges), H = 128 and 256, float32, after checking that the
@@ -30,15 +31,30 @@ Phases; any failure raises and the script exits non-zero:
   6. cuda=cpu — at a small size, one train_step on cuda (kernels) equals
                 the same step on cpu (plain versions) from the same params.
   7. slice    — Trainer.fit at the arxiv preset's widths with agg="sized",
-                float32, cut to 2 meta-steps of 32 tasks (batchsz 10000 ->
-                64), 16 val/test tasks (eval_batchsz 100 -> 16), 1 epoch
+                float32, cut to 6 meta-steps of 32 tasks (batchsz 10000 ->
+                192), 48 val/test tasks (eval_batchsz 100 -> 48), 1 epoch
                 (10 -> 1). Kernel launch counts are set to 0 just before it
                 and read just after; both kernels must have run. Then warm
                 sized and dense meta-steps in turns, with the seconds and
                 peak device memory of each, and a profiled sized step.
+  8. modes    — the same fit in the three execution modes, from the same
+                initial theta, in turns (streaming, compact, host-windowed,
+                host-windowed, compact, streaming), 2-step windows: the
+                compact pool resident on the card, and the host-windowed
+                pool (compact_pool_hbm_gb=0, host_pool_window=2, pinned
+                buffers), shown to be entered. Launch counts are set to 0
+                before each fit and read after it; every fit must launch
+                both kernels and reach the same global_step. The pool fits
+                must agree with each other (bitwise, or within rtol 1e-6)
+                and with the streaming fit (rtol 1e-5). Then a compact fit
+                that checkpoints every window is killed after its first
+                window and resumed mid-epoch by a fresh Trainer; its theta
+                must equal the straight compact fit's (rtol 1e-5).
 
-Prints the kernels' JSON line, the card's name and power limit, and last
-{"ok": true, "device": {...}}. Imports nothing of JAX or the JAX package.
+Prints the kernels' JSON line, the slice's JSON line (with the modes' warm
+tasks/s, data_s and peak device memory under "modes"), the card's name and
+power limit, and last {"ok": true, "device": {...}}. Imports nothing of JAX
+or the JAX package.
 """
 
 from __future__ import annotations
@@ -46,9 +62,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 FP32_PEAK = 67e12      # H100 SXM float32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory
@@ -189,7 +207,7 @@ def arxiv_data(seed=7):
     from gmeta_tpu_torch.data.synthetic import synthetic_disjoint
     return synthetic_disjoint(
         num_graphs=1, nodes_per_graph=170_000, avg_degree=28, feat_dim=128,
-        num_classes=15, n_way=3, k_spt=3, k_qry=24, batchsz=64, h=2,
+        num_classes=15, n_way=3, k_spt=3, k_qry=24, batchsz=192, h=2,
         sample_nodes=1000, seed=seed)
 
 
@@ -370,6 +388,203 @@ def profile_step(learner, batch, top=12):
             "top": [[k[:90], us / 1e3] for k, us in rows]}
 
 
+def kept_metrics():
+    """A MetricLogger that keeps its records and writes no file."""
+    from gmeta_tpu_torch.utils.metrics import MetricLogger
+
+    class Kept(MetricLogger):
+        def __init__(self):
+            super().__init__("")
+            self.records = []
+
+        def log(self, kind, **payload):
+            rec = super().log(kind, **payload)
+            self.records.append(rec)
+            return rec
+
+    return Kept()
+
+
+class Killed(Exception):
+    """Raised inside a fit to stand in for a killed process."""
+
+
+# the execution modes, by the Config fields that select them
+MODES = {"streaming": {},
+         "compact": dict(device_task_pool=True),
+         "host_window": dict(device_task_pool=True, compact_pool_hbm_gb=0.0,
+                             host_pool_window=2)}
+
+
+def run_mode(cfg, store, ds, mode, kill_after_windows=0):
+    """One Trainer.fit in `mode` on the card, with the kernel launches it
+    made. The fit's warm tasks/s is read from its own train records after
+    the first (the first step or window holds the warm-up): their tasks
+    over their seconds, each record's seconds being its tasks over its
+    tasks_per_s, which the trainer measures as wall time ending in a sync
+    (streaming, compact) or between stream-ordered events (host-windowed).
+    kill_after_windows > 0 raises from the compact pool's K-step call
+    after that many windows. Returns a dict of its numbers."""
+    import torch
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    from gmeta_tpu_torch.run.train import Trainer
+    metrics = kept_metrics()
+    trainer = Trainer(dataclasses.replace(cfg, **MODES[mode]), store, ds,
+                      labels_num=cfg.n_way, metrics=metrics)
+    hit = []
+    orig_host = trainer._fit_host_pool
+    trainer._fit_host_pool = lambda *a: hit.append(1) or orig_host(*a)
+    if kill_after_windows:
+        orig = trainer.learner.train_steps_from_compact
+        calls = []
+
+        def killing(idx_mat):
+            if len(calls) == kill_after_windows:
+                raise Killed()
+            calls.append(1)
+            return orig(idx_mat)
+        trainer.learner.train_steps_from_compact = killing
+    start = (trainer.start_epoch, trainer.start_batch, trainer.global_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in sp.launches:
+        sp.launches[k] = 0
+    t0 = time.time()
+    result = None
+    try:
+        result = trainer.fit()
+    except Killed:
+        assert kill_after_windows
+    torch.cuda.synchronize()
+    out = {"mode": mode, "fit_s": time.time() - t0,
+           "launches": dict(sp.launches), "start": start,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "entered_host_window": bool(hit), "result": result,
+           "theta": [p.detach().cpu().numpy() for p in trainer.learner.params],
+           "global_step": trainer.global_step}
+    assert out["launches"]["fwd"] > 0 and out["launches"]["bwd"] > 0, out
+    assert out["entered_host_window"] == (mode == "host_window"), mode
+    kind = "train_step" if mode == "streaming" else "train_window"
+    recs = [r for r in metrics.records if r["kind"] == kind]
+    for r in recs:
+        assert math.isfinite(r["meta_loss"]) and r["nan_skip"] == 0, r
+    out["record_tasks_per_s"] = [r["tasks_per_s"] for r in recs]
+    if len(recs) >= 2:
+        tasks = [(b["step"] - a["step"]) * cfg.task_num
+                 for a, b in zip(recs, recs[1:])]
+        seconds = [n / r["tasks_per_s"] for n, r in zip(tasks, recs[1:])]
+        out["tasks_per_s"] = sum(tasks) / sum(seconds)
+    out["data_s"] = [r["data_s"] for r in recs if "data_s" in r]
+    pool = [r for r in metrics.records if r["kind"] == "task_pool"]
+    if pool:
+        out["pool"] = {k: pool[0][k] for k in ("mode", "compact_bytes",
+                                               "build_s")}
+        if mode == "compact" and trainer.learner._cpool is not None:
+            out["pool"]["device_bytes"] = \
+                trainer.learner.compact_pool_device_bytes()
+    return out
+
+
+def max_rel(a, b, skip_last=False):
+    """(max abs difference, max relative difference) over two thetas;
+    skip_last leaves out the head bias for the relative one."""
+    import numpy as np
+    abs_d = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+    pairs = list(zip(a, b))[:-1] if skip_last else list(zip(a, b))
+    rel = max(float((np.abs(x - y) / np.maximum(np.abs(y), 1e-30)).max())
+              for x, y in pairs)
+    return abs_d, rel
+
+
+def assert_theta_close(a, b, rtol, steps, meta_lr, what):
+    """Every parameter within rtol (atol rtol * 1e-2); the head bias, whose
+    meta-gradient is analytically zero so Adam moves it by up to meta_lr
+    per step in a direction set by rounding, within 2 * steps * meta_lr."""
+    import numpy as np
+    for i, (x, y) in enumerate(zip(a, b)):
+        if i == len(a) - 1:
+            assert np.abs(x - y).max() <= 2 * steps * meta_lr * 1.001, what
+        else:
+            np.testing.assert_allclose(x, y, rtol=rtol, atol=rtol * 1e-2,
+                                       err_msg=f"{what}: param {i}")
+
+
+def fit_modes(cfg, store, ds):
+    """Phase 8: the three execution modes in turns, then a compact kill and
+    mid-epoch resume. Returns (summary for the JSON line, launches summed
+    over every fit)."""
+    import numpy as np
+    order = ["streaming", "compact", "host_window",
+             "host_window", "compact", "streaming"]
+    runs = {m: [] for m in MODES}
+    launches = {"fwd": 0, "bwd": 0}
+    for mode in order:
+        r = run_mode(cfg, store, ds, mode)
+        runs[mode].append(r)
+        for k in launches:
+            launches[k] += r["launches"][k]
+        log(f"  {mode}: fit {r['fit_s']:.1f} s, warm "
+            f"{r.get('tasks_per_s', float('nan')):.2f} tasks/s, peak "
+            f"{r['peak_gb']:.2f} GB, launches {r['launches']}"
+            + (f", data_s {[round(x, 3) for x in r['data_s']]}"
+               if r["data_s"] else "")
+            + (f", pool {r['pool']}" if "pool" in r else ""))
+    steps = runs["streaming"][0]["global_step"]
+    assert steps == len(ds["train"]) // cfg.task_num
+    for r in (r for rs in runs.values() for r in rs):
+        assert r["global_step"] == steps and r["result"] is not None, r
+    compact, host, stream = (runs[m][0]["theta"] for m in
+                             ("compact", "host_window", "streaming"))
+    diffs = {
+        "compact_vs_host_window": max_rel(host, compact),
+        "compact_vs_streaming": max_rel(compact, stream, skip_last=True),
+        "host_window_vs_streaming": max_rel(host, stream, skip_last=True),
+        "repeat": {m: max_rel(runs[m][1]["theta"], runs[m][0]["theta"])[0]
+                   for m in MODES}}
+    log(f"  theta differences (max abs, max rel): {diffs}")
+    if diffs["compact_vs_host_window"][0] != 0.0:
+        assert_theta_close(host, compact, 1e-6, steps, cfg.meta_lr,
+                           "host_window vs compact")
+    for pool_theta, m in ((compact, "compact"), (host, "host_window")):
+        assert_theta_close(pool_theta, stream, 1e-5, steps, cfg.meta_lr,
+                           f"{m} vs streaming")
+
+    ck = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    window = 2
+    ck_cfg = dataclasses.replace(cfg, checkpoint_dir=str(ck),
+                                 checkpoint_every_steps=window)
+    killed = run_mode(ck_cfg, store, ds, "compact", kill_after_windows=1)
+    assert killed["result"] is None and killed["global_step"] == window
+    resumed = run_mode(ck_cfg, store, ds, "compact")
+    assert resumed["start"] == (0, window, window), resumed["start"]
+    assert resumed["global_step"] == steps
+    assert_theta_close(resumed["theta"], compact, 1e-5, steps, cfg.meta_lr,
+                       "resumed vs straight compact")
+    resume_diff = max_rel(resumed["theta"], compact)
+    log(f"  kill after window 1 and resume at epoch 0 batch {window}: "
+        f"theta vs the straight compact fit (max abs, max rel) "
+        f"{resume_diff}; resumed fit launches {resumed['launches']}")
+    for r in (killed, resumed):
+        for k in launches:
+            launches[k] += r["launches"][k]
+    shutil.rmtree(ck, ignore_errors=True)
+
+    summary = {"order": order, "steps": steps, "theta_diff": diffs,
+               "resume": {"theta_diff": resume_diff,
+                          "start": resumed["start"],
+                          "fit_s": resumed["fit_s"]}}
+    for m, rs in runs.items():
+        summary[m] = {k: [r.get(k) for r in rs] for k in
+                      ("tasks_per_s", "record_tasks_per_s", "peak_gb",
+                       "fit_s", "data_s", "launches")}
+        if "pool" in rs[0]:
+            summary[m]["pool"] = [r["pool"] for r in rs]
+        summary[m]["tasks_per_s_mean"] = statistics.mean(
+            r["tasks_per_s"] for r in rs)
+    return summary, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -381,7 +596,6 @@ def main():
         from gmeta_tpu_torch.ops import sized_spmm as sp
         from gmeta_tpu_torch.run.train import Trainer
         from gmeta_tpu_torch.utils.device import resolve_device
-        from gmeta_tpu_torch.utils.metrics import MetricLogger
     except ImportError as e:
         raise SystemExit(f"chip_smoke: the gmeta_tpu_torch package is not "
                          f"beside this script ({e})")
@@ -413,9 +627,10 @@ def main():
         f"{tr_ds.mean_bin_fill:.4f}; mean edges/task "
         f"{tr_ds.mean_edges_per_task:.1f}")
 
-    cfg = dataclasses.replace(PRESETS["arxiv"], agg="sized", batchsz=64,
-                              eval_batchsz=16, epoch=1, dtype="float32",
+    cfg = dataclasses.replace(PRESETS["arxiv"], agg="sized", batchsz=192,
+                              eval_batchsz=48, epoch=1, dtype="float32",
                               train_result_report_steps=1)
+    n_eval = len(ds["test"])
     task_num = cfg.task_num
 
     t = phase("5 kernel timing at the arxiv query shape")
@@ -428,18 +643,7 @@ def main():
     log(f"  {time.time() - t:.1f} s")
 
     t = phase("7 the slice: Trainer.fit at arxiv width, agg=sized")
-
-    class Kept(MetricLogger):
-        def __init__(self):
-            super().__init__("")
-            self.records = []
-
-        def log(self, kind, **payload):
-            rec = super().log(kind, **payload)
-            self.records.append(rec)
-            return rec
-
-    metrics = Kept()
+    metrics = kept_metrics()
     trainer = Trainer(cfg, store, ds, labels_num=cfg.n_way, metrics=metrics)
     assert trainer.device.type == "cuda" and trainer.agg == "sized"
     torch.cuda.synchronize()
@@ -456,7 +660,8 @@ def main():
     log(f"  fit {fit_s:.1f} s; kernel launches {main_path}; peak device "
         f"memory {peak_gb:.2f} GB")
     steps = [r for r in metrics.records if r["kind"] == "train_step"]
-    assert len(steps) == 2 and result.global_step == 2, steps
+    n_steps = len(tr_ds) // task_num
+    assert len(steps) == n_steps and result.global_step == n_steps, steps
     for r in steps:
         assert math.isfinite(r["meta_loss"]) and r["nan_skip"] == 0, r
         assert all(0.0 <= a <= 1.0 for a in r["acc_curve"]), r
@@ -491,13 +696,22 @@ def main():
     t1 = time.time()
     curves = trainer.evaluate("test")
     eval_s = time.time() - t1
-    assert curves.shape == (16, cfg.update_step_test + 1)
+    assert curves.shape == (n_eval, cfg.update_step_test + 1)
     log(f"  warm meta-step {step_s:.3f} s ({task_num / step_s:.2f} tasks/s, "
         f"{task_num * tr_ds.mean_edges_per_task / step_s:.0f} edges/s), "
         f"dense {dense_s:.3f} s; "
         f"launches {per_step}; fit steps compute_s "
         f"{[round(r['compute_s'], 3) for r in steps]}; evaluate(test) of "
-        f"16 tasks {eval_s:.3f} s")
+        f"{n_eval} tasks {eval_s:.3f} s")
+    del trainer
+    torch.cuda.empty_cache()
+
+    t = phase("8 the execution modes: streaming, compact pool, host-windowed"
+              " pool; kill and resume")
+    modes, mode_launches = fit_modes(
+        dataclasses.replace(cfg, train_result_report_steps=2), store, ds)
+    log(f"  {time.time() - t:.1f} s; kernel launches of phase 8 "
+        f"{mode_launches}")
 
     kernels = []
     for direction, line in (("fwd", 39), ("bwd", 80)):
@@ -507,7 +721,7 @@ def main():
             "route": "cuda",
             "source": "gmeta_tpu_torch/csrc/sized_spmm.cu",
             "replaces": f"gmeta_tpu/ops/pallas_spmm.py:{line}",
-            "launches": main_path[direction],
+            "launches": main_path[direction] + mode_launches[direction],
             "max_abs_err": max(errs[direction]["float32"],
                                head["max_abs_err"]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -527,7 +741,8 @@ def main():
         "step_compute_s": [r["compute_s"] for r in steps],
         "dense_step_s": dense_s, "step_s_turns": turns,
         "step_peak_gb": peaks, "profile": breakdown,
-        "result": dataclasses.asdict(result), "card": card}}))
+        "result": dataclasses.asdict(result), "modes": modes,
+        "card": card}}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -53,10 +53,13 @@ class Config:
     dtype: str = "float32"              # compute dtype for activations
     train_result_report_steps: int = 30
     num_workers: int = 0                # host pipeline prefetch threads
-    device_task_pool: bool = False      # device-resident task pool (not
-                                        # ported yet: raises)
+    device_task_pool: bool = False      # pack the train pool once: compact
+                                        # and resident on the device, or
+                                        # host-windowed above the budget
     compact_pool_hbm_gb: float = 10.0   # device budget of the compact pool
-                                        # (read only with device_task_pool)
+                                        # (read only with device_task_pool;
+                                        # the JAX package's, sized for a
+                                        # 16 GB TPU, not re-measured here)
     task_vmap_chunk: int = -1           # tasks per chunk of the meta-step:
                                         # bounds the live densified
                                         # adjacencies. -1 = auto (all tasks
@@ -65,8 +68,9 @@ class Config:
     host_pool_window: int = 8           # meta-steps per window of the
                                         # host-pool mode (read only with
                                         # device_task_pool)
-    checkpoint_dir: str = ""            # empty = no checkpointing (not
-                                        # ported yet: a non-empty value raises)
+    checkpoint_dir: str = ""            # empty = no checkpointing; resumes
+                                        # from its newest checkpoint (either
+                                        # package's)
     checkpoint_every_epochs: int = 1
     checkpoint_every_steps: int = 0     # 0 = epoch-granular only
     metrics_path: str = ""              # jsonl metrics stream; empty = stdout only
@@ -89,8 +93,7 @@ class Config:
     cap_strategy: str = "uniform"       # subgraph node-cap: 'uniform' (reference
                                         # parity, subgraph_data_processing.py:312-314)
                                         # | 'degree' (centrality-scored keep-top-k)
-    profile_dir: str = ""               # profiler trace dir; empty = off (not
-                                        # ported yet: a non-empty value raises)
+    profile_dir: str = ""               # torch.profiler trace dir; empty = off
     profile_steps: int = 5              # steps to trace (starting after warm-up)
     debug_nans: bool = False            # anomaly detection: fail loudly at the
                                         # op that produced a NaN instead of the

@@ -146,6 +146,13 @@ class MetaDataset:
                          self.P_qry, self.E_qry, B=self.B_qry),
         )
 
+    def stacked_pool(self) -> TaskBatch:
+        """All tasks packed + stacked (leading axis = batchsz), for placing
+        the whole pre-sampled pool on the device once
+        (MetaLearner.set_task_pool_compact) or gathering windows from it on
+        the host."""
+        return stack_tasks([self.pack_task(t) for t in self.tasks])
+
     def __len__(self) -> int:
         return len(self.tasks)
 

@@ -1,7 +1,7 @@
 """ProtoMAML in PyTorch, batched over tasks.
 
-Counterpart of gmeta_tpu/meta/maml.py:38-224,319-320,542-566 (the streaming
-path; the pool and window modes come in a later slice):
+Counterpart of gmeta_tpu/meta/maml.py:38-566, the streaming step and the
+pool and window modes:
 
 - the inner loop runs `update_step` SGD steps on fast weights that carry a
   leading task axis (theta expanded to (T, ...)), so one support forward and
@@ -24,6 +24,13 @@ path; the pool and window modes come in a later slice):
 - `task_chunk` > 0 runs the tasks in chunks; each chunk adds sum/T of its
   losses to the gradient, so the step equals the unchunked one while only
   one chunk's adjacencies and graphs are live.
+- the pool modes run K meta-steps per call over tasks that are already on
+  the device: a resident pool (full or compact form) gathered by index, or
+  a window of K meta-batches shipped as one int32 buffer in the JAX
+  package's wire format. PyTorch has no `lax.scan`, so a K-step call is a
+  Python loop of `train_step` that decodes one step's T tasks at a time on
+  the device, with no host sync, and returns the per-step metrics stacked
+  along a leading axis.
 """
 
 from __future__ import annotations
@@ -199,7 +206,8 @@ def batch_to(batch: TaskBatch, device) -> TaskBatch:
                      qry=_set_to(batch.qry, device))
 
 
-def take_tasks(batch: TaskBatch, sl: slice) -> TaskBatch:
+def take_tasks(batch: TaskBatch, sl) -> TaskBatch:
+    """The tasks `sl` (a slice or an index array) of every field."""
     def one(sg):
         return SubgraphSet(*(None if x is None else x[sl] for x in sg))
     return TaskBatch(spt=one(batch.spt), qry=one(batch.qry))
@@ -238,6 +246,11 @@ class MetaLearner:
             layer_spec, proto_classes, update_lr, update_step_test,
             first_order=first_order, compute_dtype=compute_dtype, agg=agg)
         self._feats = None
+        self._pool = None         # full-form device-resident pool
+        self._cpool = None        # compact device-resident pool leaves
+        self._cmeta = None        # (spt_meta, qry_meta) of the compact pool
+        self._codec = None        # window codec (K, T, spt_meta, qry_meta)
+        self._copy_stream = None  # CUDA stream of pinned window copies
 
     # -- host-facing API -----------------------------------------------------
 
@@ -245,12 +258,23 @@ class MetaLearner:
     def params(self):
         return self.model.flat()
 
-    def set_params(self, params):
-        """Load theta (e.g. from convert.params_from_jax) and restart Adam."""
+    def set_params(self, params, opt_state=None):
+        """Load theta (e.g. from convert.params_from_jax or a checkpoint)
+        and either restart Adam or, given `opt_state` as a mapping of
+        AdamState's fields (numpy or tensors), load its state."""
         with torch.no_grad():
             for p, v in zip(self.params, params):
                 p.copy_(torch.as_tensor(v))
-        self.opt_state = adam_init(self.params)
+        if opt_state is None:
+            self.opt_state = adam_init(self.params)
+            return
+
+        def dev(x, dtype=torch.float32):
+            return torch.as_tensor(x).to(self.device, dtype)
+        self.opt_state = AdamState(
+            count=dev(opt_state["count"], torch.int32),
+            mu=tuple(dev(m) for m in opt_state["mu"]),
+            nu=tuple(dev(v) for v in opt_state["nu"]))
 
     def set_features(self, feats):
         self._feats = torch.as_tensor(np.asarray(feats, np.float32)).to(
@@ -292,6 +316,244 @@ class MetaLearner:
                 nu=tuple(torch.where(ok, n, o) for n, o in zip(new.nu, old.nu)))
         return {"meta_loss": loss, "accs": accs / T,
                 "nan_skip": (~ok).to(torch.int32)}
+
+    def _train_steps(self, batches) -> dict:
+        """One meta-step per batch of the iterable, in order. Returns the
+        per-step metrics stacked along a leading axis (the JAX package's
+        scanned `ms`), without waiting for the device."""
+        ms = [self.train_step(b) for b in batches]
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    def _rows(self, idx) -> torch.Tensor:
+        """Task indices (host) as an int64 tensor on the device."""
+        return torch.as_tensor(np.asarray(idx, np.int64)).to(
+            self.device, non_blocking=True)
+
+    # -- full-form resident pool ---------------------------------------------
+
+    def set_task_pool(self, pool: TaskBatch):
+        """Place a stacked task pool (leading axis = number of tasks) on the
+        device once, in the form `batch_to` gives; train_step_from_pool and
+        train_steps_from_pool then transfer only task indices."""
+        self._pool = batch_to(pool, self.device)
+
+    def train_step_from_pool(self, idxs):
+        return self.train_step(take_tasks(self._pool, self._rows(idxs)))
+
+    def train_steps_from_pool(self, idx_mat):
+        """idx_mat.shape[0] meta-steps over the resident pool, row k of
+        idx_mat naming step k's tasks. Returns stacked per-step metrics."""
+        return self._train_steps(take_tasks(self._pool, rows)
+                                 for rows in self._rows(idx_mat))
+
+    # -- window wire format --------------------------------------------------
+    #
+    # The JAX package's format, bit for bit, so that either package's
+    # encoder output decodes in the other. Three lossless reductions:
+    #   1. ONE contiguous int32 buffer per window (one transfer, not one
+    #      per field).
+    #   2. masks are never shipped: pack_set places live node rows at
+    #      [0, bin_fill) and real edges at [0, n_edges), so node_mask =
+    #      arange(P) < bin_fill and edge_mask = arange(E) < n_edges, rebuilt
+    #      on the device.
+    #   3. edge endpoints pack into ONE int32. Edges never cross bins, so
+    #      (bin, src_local, dst_local) pins both flat endpoints; it fits
+    #      whenever 2*ceil(log2 P) + ceil(log2 B) <= 31, which leaves bit 31
+    #      unused, so every field unpacks non-negative in int32. Pad edges
+    #      (mask 0) get src := their dst's bin base, which keeps decoded
+    #      indices in range.
+    # The compact pool holds the same leaves as separate (N, ...) arrays.
+
+    @staticmethod
+    def _edge_bits(B: int, P: int) -> int:
+        """Bits per local endpoint, or 0 where the packed form does not
+        fit (both endpoints are then shipped as they are)."""
+        bits_p = max(int(np.ceil(np.log2(max(P, 2)))), 1)
+        bits_b = max(int(np.ceil(np.log2(max(B, 2)))), 1)
+        return bits_p if 2 * bits_p + bits_b <= 31 else 0
+
+    @staticmethod
+    def _encode_set_leaves(sg: SubgraphSet):
+        """Host: numpy SubgraphSet with a leading task axis -> (compact int32
+        leaves [node_gid, packed edges (or src, dst), centers, labels,
+        bin_fill, n_edges], meta (B, P, E, S, bits_p))."""
+        B, P = sg.node_gid.shape[-2:]
+        E = sg.edge_src.shape[-1]
+        bits_p = MetaLearner._edge_bits(B, P)
+        n_edges = sg.edge_mask.sum(axis=-1).astype(np.int32)
+        leaves = [sg.node_gid]
+        if bits_p:
+            dst = sg.edge_dst.astype(np.int32)
+            bin_id = dst // P
+            # real edges share the dst's bin; pad edges (src 0, dst V-1) do
+            # not: the clip is exact for real edges, in range for pads
+            src_l = np.clip(sg.edge_src.astype(np.int32) - bin_id * P,
+                            0, P - 1)
+            leaves.append(src_l | ((dst - bin_id * P) << bits_p)
+                          | (bin_id << (2 * bits_p)))
+        else:
+            leaves += [sg.edge_src, sg.edge_dst]
+        leaves += [sg.centers, sg.labels, sg.bin_fill, n_edges]
+        S = sg.centers.shape[-2]
+        return ([np.ascontiguousarray(l, np.int32) for l in leaves],
+                (B, P, E, S, bits_p))
+
+    @staticmethod
+    def compact_pool_bytes(pool: TaskBatch) -> int:
+        """Compact-form size of a stacked pool, without encoding it."""
+        def one(sg):
+            N, B, P = sg.node_gid.shape
+            E = sg.edge_src.shape[-1]
+            S = sg.centers.shape[-2]
+            edge_words = E if MetaLearner._edge_bits(B, P) else 2 * E
+            return N * 4 * (B * P + edge_words + 3 * S + B + 1)
+        return one(pool.spt) + one(pool.qry)
+
+    @staticmethod
+    def encode_window(chunk: TaskBatch, task_num: int, out=None):
+        """Host: a (K*task_num)-task window chunk -> (flat int32 buffer,
+        codec (K, T, spt_meta, qry_meta)). Pure numpy, safe on a producer
+        thread. `out`, a large enough int32 array (such as a pinned buffer's
+        numpy view), receives the buffer, which is then a prefix of it."""
+        K = chunk.spt.node_gid.shape[0] // task_num
+        spt, m_spt = MetaLearner._encode_set_leaves(chunk.spt)
+        qry, m_qry = MetaLearner._encode_set_leaves(chunk.qry)
+        parts = [l.ravel() for l in spt + qry]
+        if out is not None:
+            out = out[:sum(p.size for p in parts)]
+        buf = np.concatenate(parts, out=out)
+        return buf, (K, task_num, m_spt, m_qry)
+
+    @staticmethod
+    def _build_set(leaves, meta) -> SubgraphSet:
+        """Compact int32 leaves on the device, with any leading dims ->
+        the SubgraphSet `batch_to` gives: edge endpoints unpacked and both
+        masks rebuilt in int32, then index fields as int64. Shapes come
+        from `meta` (host data), so nothing waits for the device."""
+        B, P, E, S, bits_p = meta
+        it = iter(leaves)
+        node_gid = next(it)
+        if bits_p:
+            packed = next(it)
+            mask_p = (1 << bits_p) - 1
+            base = (packed >> (2 * bits_p)) * P     # bin * P, non-negative
+            edge_src = base + (packed & mask_p)
+            edge_dst = base + ((packed >> bits_p) & mask_p)
+        else:
+            edge_src, edge_dst = next(it), next(it)
+        centers, labels, bin_fill, n_edges = it
+        dev = node_gid.device
+        node_mask = (torch.arange(P, device=dev, dtype=torch.int32)
+                     < bin_fill[..., None]).to(torch.float32)
+        edge_mask = (torch.arange(E, device=dev, dtype=torch.int32)
+                     < n_edges[..., None]).to(torch.float32)
+        return SubgraphSet(
+            node_gid=node_gid.long(), node_mask=node_mask,
+            edge_src=edge_src.long(), edge_dst=edge_dst.long(),
+            edge_mask=edge_mask, centers=centers.long(),
+            labels=labels.long(), bin_fill=bin_fill)
+
+    @staticmethod
+    def _split_set(buf, off, K, T, meta):
+        """A set's leaves as (K, T, ...) views of a window buffer from
+        offset `off`; returns (leaves, next offset)."""
+        B, P, E, S, bits_p = meta
+        shapes = [(B, P)] + [(E,)] * (1 if bits_p else 2) \
+            + [(S, 2), (S,), (B,), ()]
+        leaves = []
+        for shape in shapes:
+            n = K * T * int(np.prod(shape, dtype=np.int64))
+            leaves.append(buf[off:off + n].reshape((K, T) + shape))
+            off += n
+        return leaves, off
+
+    def _window_leaves(self, buf):
+        K, T, m_spt, m_qry = self._codec
+        spt, off = self._split_set(buf, 0, K, T, m_spt)
+        qry, off = self._split_set(buf, off, K, T, m_qry)
+        if off != buf.shape[0]:
+            raise ValueError(f"window buffer of {buf.shape[0]} words, codec "
+                             f"{self._codec} describes {off}")
+        return spt, qry
+
+    def _decode_window(self, buf) -> TaskBatch:
+        """A whole window buffer (on its device) -> (K, T, ...) TaskBatch."""
+        _, _, m_spt, m_qry = self._codec
+        spt, qry = self._window_leaves(buf)
+        return TaskBatch(spt=self._build_set(spt, m_spt),
+                         qry=self._build_set(qry, m_qry))
+
+    # -- compact resident pool -----------------------------------------------
+
+    def set_task_pool_compact(self, pool: TaskBatch):
+        """Place the pool on the device in compact form (no masks, one int32
+        per edge): train_steps_from_compact then gathers and decodes each
+        step's tasks on the device, and per window only the index matrix
+        crosses from the host."""
+        spt, m_spt = self._encode_set_leaves(pool.spt)
+        qry, m_qry = self._encode_set_leaves(pool.qry)
+        self._cmeta = (m_spt, m_qry)
+        self._cpool = tuple(tuple(torch.from_numpy(l).to(self.device)
+                                  for l in leaves) for leaves in (spt, qry))
+
+    def compact_pool_device_bytes(self) -> int:
+        return sum(l.numel() * l.element_size()
+                   for leaves in self._cpool for l in leaves)
+
+    def train_steps_from_compact(self, idx_mat):
+        """idx_mat.shape[0] meta-steps over the compact resident pool, one
+        step's T tasks gathered and decoded at a time."""
+        (spt, qry), (m_spt, m_qry) = self._cpool, self._cmeta
+
+        def batch(rows):
+            return TaskBatch(
+                spt=self._build_set([l.index_select(0, rows) for l in spt],
+                                    m_spt),
+                qry=self._build_set([l.index_select(0, rows) for l in qry],
+                                    m_qry))
+        return self._train_steps(batch(rows) for rows in self._rows(idx_mat))
+
+    # -- host-windowed pool --------------------------------------------------
+
+    def put_buffer(self, buf, codec):
+        """Host->device copy of an encoded window buffer (numpy, or a torch
+        tensor in pinned memory); returns (device buffer, event). A pinned
+        buffer on a CUDA learner is copied without blocking the host, on the
+        learner's copy stream: the compute stream waits for the copy through
+        an event, and the returned event completes when the host buffer may
+        be refilled. Otherwise the copy has finished on return and the event
+        is None."""
+        self._codec = codec
+        src = torch.as_tensor(buf)
+        if self.device.type != "cuda" or not src.is_pinned():
+            return src.to(self.device), None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            dev = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+            dev.copy_(src, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        compute.wait_event(done)
+        # allocated on the copy stream, read on the compute stream: keep the
+        # allocator from reusing it before the compute stream is done
+        dev.record_stream(compute)
+        return dev, done
+
+    def put_window(self, chunk: TaskBatch, task_num: int):
+        """encode_window + put_buffer in one call (inline path)."""
+        return self.put_buffer(*self.encode_window(chunk, task_num))[0]
+
+    def train_steps_from_window(self, buf_dev, task_num: int):
+        """The K meta-steps of a window buffer already on the device
+        (put_buffer), decoded one step at a time."""
+        _, _, m_spt, m_qry = self._codec
+        spt, qry = self._window_leaves(buf_dev)
+        return self._train_steps(
+            TaskBatch(spt=self._build_set([l[k] for l in spt], m_spt),
+                      qry=self._build_set([l[k] for l in qry], m_qry))
+            for k in range(spt[0].shape[0]))
 
     def finetune_batch(self, batch: TaskBatch, params=None) -> torch.Tensor:
         """(T, update_step_test+1) accuracy curves for a batch of tasks,

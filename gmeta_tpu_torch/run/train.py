@@ -1,10 +1,20 @@
 """Training entry point: the reference's full protocol on the port.
 
-Counterpart of gmeta_tpu/run/train.py (its streaming path): per-epoch train
-loop over task_num-sized meta-batches, per-epoch validation with an
-early-stopping snapshot of the best model (val acc at the LAST finetune
-step, train.py:123-127), final test of both the last and the best model,
-structured jsonl metrics, and batched evaluation.
+Counterpart of gmeta_tpu/run/train.py: per-epoch train loop over
+task_num-sized meta-batches, per-epoch validation with an early-stopping
+snapshot of the best model (val acc at the LAST finetune step,
+train.py:123-127), final test of both the last and the best model,
+structured jsonl metrics, batched evaluation, checkpoint/resume (also from
+a checkpoint the JAX package wrote) and profiler traces, in the JAX
+package's three execution modes:
+
+- streaming (default): the host packs each meta-batch and ships it;
+- `device_task_pool`, compact pool resident on the device: the pool is
+  packed and encoded once, and each report window ships only task indices;
+- `device_task_pool` with a compact pool above `compact_pool_hbm_gb`: the
+  pool stays in host memory and a producer thread ships windows of
+  `host_pool_window` meta-steps as one int32 buffer each (pinned, copied on
+  a side stream, on CUDA).
 
 Reporting parity notes: the reference prints `accs[1]` as "Test acc"
 (train.py:137) and its "Early Stopped Test acc" averages a list
@@ -12,8 +22,7 @@ contaminated by the previous test loop (train.py:130-146). Both
 reference-style numbers are reported alongside the clean ones.
 
 Not ported yet, and rejected with NotImplementedError rather than ignored:
-checkpoint_dir, device_task_pool, profile_dir, remat_inner, the native
-extractor, --mesh_tasks and --mesh_edges.
+remat_inner, the native extractor, --mesh_tasks and --mesh_edges.
 
 CLI: python -m gmeta_tpu_torch.run.train --preset arxiv --data_dir ...
      [--device cuda|cpu] [overrides]
@@ -23,6 +32,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import queue
+import threading
 import time
 from typing import Dict, Optional
 
@@ -30,17 +42,16 @@ import numpy as np
 import torch
 
 from gmeta_tpu_torch.config import Config, PRESETS, build_model_config
+from gmeta_tpu_torch.data.pack import TaskBatch
 from gmeta_tpu_torch.data.pipeline import MetaDataset
-from gmeta_tpu_torch.meta.maml import MetaLearner
+from gmeta_tpu_torch.meta.maml import MetaLearner, take_tasks
 from gmeta_tpu_torch.models.gcn import count_params
+from gmeta_tpu_torch.utils import checkpoint as ckpt
 from gmeta_tpu_torch.utils.device import resolve_device
 from gmeta_tpu_torch.utils.metrics import MetricLogger, StepTimer, rss_gb
 
 # What the port does not do yet, by Config field, and the slice that adds it.
 _LATER = {
-    "checkpoint_dir": "checkpoint/resume",
-    "device_task_pool": "the pool and window modes",
-    "profile_dir": "profiler tracing",
     "remat_inner": "inner-step recomputation",
 }
 
@@ -52,7 +63,7 @@ class FitResult:
     best_test_acc: float           # clean: mean accs[-1], best model
     early_stopped_ref: float       # reference-style contaminated average
     val_max_acc: float
-    epochs_run: int
+    epochs_run: int                # epochs executed THIS process (resume-aware)
     global_step: int
 
 
@@ -93,6 +104,7 @@ class Trainer:
         self.task_chunk = task_chunk
         self.metrics.log("run_config", agg=agg, device=str(self.device),
                          mean_bin_fill=round(tr.mean_bin_fill, 4),
+                         device_task_pool=cfg.device_task_pool,
                          task_chunk=task_chunk, **self.buckets)
         self.learner = MetaLearner(
             self.spec, labels_num,
@@ -108,7 +120,59 @@ class Trainer:
         # early stopping state (train.py:86-87,125-127)
         self.max_acc = 0.0
         self.best_params = self.learner.snapshot()
+        self.start_epoch = 0
+        self.start_batch = 0   # in-epoch batch position (mid-epoch resume)
         self.global_step = 0
+
+        if cfg.checkpoint_dir:
+            path = ckpt.latest_path(cfg.checkpoint_dir)
+            if path:
+                self._restore(path)
+
+    # ---- checkpointing -----------------------------------------------------
+
+    def _restore(self, path: str):
+        """Resume from a checkpoint of either package (utils/checkpoint)."""
+        state = ckpt.restore(path)
+        self.learner.set_params(state["params"], state["opt_state"])
+        self.max_acc = float(state["max_acc"])
+        self.best_params = tuple(torch.as_tensor(p).to(self.device)
+                                 for p in state["best_params"])
+        self.global_step = int(state["step"])
+        batch_in_epoch = int(state.get("batch_in_epoch", -1))
+        if batch_in_epoch >= 0:
+            # mid-epoch snapshot: re-enter the SAME epoch and skip the batches
+            # already consumed (the stream order is a pure function of
+            # seed + epoch, so position alone pins the remaining stream)
+            self.start_epoch = int(state["epoch"])
+            self.start_batch = batch_in_epoch
+        else:
+            self.start_epoch = int(state["epoch"]) + 1
+            self.start_batch = 0
+        self.metrics.echo_line(
+            f"resumed from {path} at epoch {self.start_epoch}"
+            f" batch {self.start_batch}")
+
+    def _save(self, epoch: int, batch_in_epoch: int = -1,
+              params=None, opt_state=None):
+        """batch_in_epoch >= 0 marks a mid-epoch snapshot: `batch_in_epoch`
+        batches of this epoch are already consumed; -1 = epoch complete.
+        `params`/`opt_state` replace the learner's current state: the
+        host-windowed loop saves copies taken at a window's end, because by
+        the time it saves, the next window's steps have updated theta in
+        place."""
+        if not self.cfg.checkpoint_dir:
+            return
+        ckpt.save(self.cfg.checkpoint_dir, self.global_step, {
+            "params": self.learner.params if params is None else params,
+            "opt_state": (self.learner.opt_state if opt_state is None
+                          else opt_state),
+            "best_params": self.best_params,
+            "max_acc": self.max_acc,
+            "epoch": epoch,
+            "batch_in_epoch": batch_in_epoch,
+            "step": self.global_step,
+        })
 
     # ---- evaluation --------------------------------------------------------
 
@@ -125,29 +189,62 @@ class Trainer:
             curves.append(accs.cpu().numpy())
         return np.concatenate(curves, axis=0)[:len(ds)]
 
+    def _end_epoch(self, epoch: int):
+        """Per-epoch validation, early stopping and the epoch checkpoint
+        (train.py:115-127)."""
+        curves = self.evaluate("val")
+        acc_curve = curves.mean(axis=0)
+        self.metrics.echo_line(
+            f"Epoch: {epoch + 1}  Val acc: {acc_curve[-1]:.3f}")
+        self.metrics.log("val", epoch=epoch, step=self.global_step,
+                         acc_curve=acc_curve.tolist())
+        if acc_curve[-1] > self.max_acc:
+            self.max_acc = float(acc_curve[-1])
+            self.best_params = self.learner.snapshot()
+        if (epoch + 1) % self.cfg.checkpoint_every_epochs == 0:
+            self._save(epoch)
+
     # ---- training ----------------------------------------------------------
 
     def fit(self) -> FitResult:
         cfg = self.cfg
         train = self.datasets["train"]
         t_start = time.time()
+        # profiler window: starts after the first step (warm-up excluded),
+        # covers cfg.profile_steps steps
+        prof_stop = (self.global_step + 1 + cfg.profile_steps
+                     if cfg.profile_dir else -1)
+        prof = None
+
         mean_edges = train.mean_edges_per_task
         win_t, win_steps = time.time(), 0
+        self._fit_from_epoch = self.start_epoch  # for epochs_run on resume
+
+        if cfg.device_task_pool:
+            return self._fit_device_pool(t_start, mean_edges)
 
         # Depth-1 dispatch: packing batch N+1 overlaps the device executing
         # step N, but step N+1 is not dispatched until step N has completed,
         # so the host never runs more than one step ahead.
         prev_done = None
-        for epoch in range(cfg.epoch):
+        for epoch in range(self.start_epoch, cfg.epoch):
             timer = StepTimer()
+            skip = self.start_batch if epoch == self.start_epoch else 0
             for step, batch in enumerate(train.batches(
                     cfg.task_num, shuffle=True, seed=cfg.seed + epoch,
-                    num_workers=cfg.num_workers)):
+                    num_workers=cfg.num_workers, skip_batches=skip),
+                    start=skip):
                 data_t = timer.split()
+                if prof is None and \
+                        self.global_step == prof_stop - cfg.profile_steps:
+                    prof = _start_trace(self.device)
                 if prev_done is not None:
                     prev_done.synchronize()
                 m = self.learner.train_step(batch)
                 prev_done = _step_done(self.device)
+                if prof is not None and self.global_step + 1 >= prof_stop:
+                    self._stop_trace(prof)
+                    prof = None
                 win_steps += 1
                 if step % cfg.train_result_report_steps == 0:
                     accs = m["accs"].cpu().numpy()  # sync point (host fetch)
@@ -171,17 +268,257 @@ class Trainer:
                         edges_per_s=round(tasks_per_s * mean_edges, 1),
                         data_s=data_t, compute_s=compute_t, rss_gb=rss_gb())
                 self.global_step += 1
+                if (cfg.checkpoint_every_steps
+                        and self.global_step % cfg.checkpoint_every_steps == 0):
+                    self._save(epoch, batch_in_epoch=step + 1)
+            self._end_epoch(epoch)
 
-            # per-epoch validation + early stopping (train.py:115-127)
-            curves = self.evaluate("val")
-            acc_curve = curves.mean(axis=0)
+        if prof is not None:  # fewer total steps than the requested window
+            self._stop_trace(prof)
+        return self._final_test(t_start)
+
+    def _stop_trace(self, prof) -> None:
+        path = _stop_trace(prof, self.cfg.profile_dir, self.device,
+                           f"step{self.global_step:08d}")
+        self.metrics.echo_line(f"profiler trace written to {path}")
+
+    def _epoch_steps(self, epoch: int) -> np.ndarray:
+        """(steps_per_epoch, task_num) task indices of an epoch: the order
+        `MetaDataset.batches` streams for the same seed."""
+        n_tasks = len(self.datasets["train"])
+        steps = n_tasks // self.cfg.task_num
+        order = np.random.RandomState(self.cfg.seed + epoch).permutation(
+            n_tasks)[:steps * self.cfg.task_num]
+        return order.reshape(steps, self.cfg.task_num)
+
+    def _log_window(self, epoch, start, n_steps, m, dt, mean_edges):
+        """The train_window record of a window's metrics (on the host)."""
+        accs = m["accs"][-1]
+        tasks_per_s = n_steps * self.cfg.task_num / dt
+        self.metrics.echo_line(
+            f"Epoch: {epoch + 1}  Step: {start + n_steps}  training acc: "
+            f"{accs[-1]:.3f}  tasks/s: {tasks_per_s:.1f}")
+        self.metrics.log(
+            "train_window", epoch=epoch, step=self.global_step,
+            acc_curve=accs.tolist(), meta_loss=float(m["meta_loss"][-1]),
+            nan_skip=int(m["nan_skip"].sum()),
+            tasks_per_s=round(tasks_per_s, 2),
+            edges_per_s=round(tasks_per_s * mean_edges, 1), rss_gb=rss_gb())
+
+    def _fit_device_pool(self, t_start: float, mean_edges: float) -> FitResult:
+        """Epoch loop over a pre-packed task pool: the epoch's shuffled
+        task stream is chunked into report windows, each one call of K
+        meta-steps, with one host sync per window (the metric fetch). The
+        protocol (per-epoch val, early stopping, checkpointing, final tests)
+        is the streaming path's.
+
+        The compact pool is resident on the device when it fits
+        cfg.compact_pool_hbm_gb; above it, the host-resident windowed
+        variant runs (_fit_host_pool). The budget and the window's byte cap
+        below are the JAX package's, sized for a 16 GB TPU and kept so that
+        a flag means the same in both packages."""
+        cfg = self.cfg
+        train = self.datasets["train"]
+        t0 = time.time()
+        pool_np = train.stacked_pool()
+        compact_bytes = MetaLearner.compact_pool_bytes(pool_np)
+        compact_gb = compact_bytes / 1e9
+        if compact_gb > cfg.compact_pool_hbm_gb:
             self.metrics.echo_line(
-                f"Epoch: {epoch + 1}  Val acc: {acc_curve[-1]:.3f}")
-            self.metrics.log("val", epoch=epoch, step=self.global_step,
-                             acc_curve=acc_curve.tolist())
-            if acc_curve[-1] > self.max_acc:
-                self.max_acc = float(acc_curve[-1])
-                self.best_params = self.learner.snapshot()
+                f"compact pool {compact_gb:.1f} GB >"
+                f" compact_pool_hbm_gb={cfg.compact_pool_hbm_gb}"
+                f" -> host-resident windowed pool"
+                f" ({cfg.host_pool_window}-step windows)")
+            self.metrics.log("task_pool", mode="host_window",
+                             compact_bytes=compact_bytes,
+                             build_s=time.time() - t0)
+            return self._fit_host_pool(pool_np, t_start, mean_edges)
+        self.learner.set_task_pool_compact(pool_np)
+        self.metrics.echo_line(
+            f"compact task pool resident on {self.device} "
+            f"({compact_gb:.1f} GB)")
+        self.metrics.log("task_pool", mode="compact",
+                         compact_bytes=compact_bytes,
+                         build_s=time.time() - t0)
+        # Bound a window's decoded batches as the JAX package does (its scan
+        # decodes a whole window up front; here one step is decoded at a
+        # time, and the cap only sets the report cadence):
+        # K * task_num * full-form task bytes <= 5e8.
+        task_bytes = (sum(x.nbytes for sg in pool_np for x in sg
+                          if x is not None) / max(len(train), 1))
+        byte_cap = max(1, int(5e8 // max(task_bytes * cfg.task_num, 1)))
+        del pool_np
+        steps_per_epoch = len(train) // cfg.task_num
+        window = max(1, min(cfg.train_result_report_steps, steps_per_epoch,
+                            byte_cap))
+        # profiler window: the second chunk (the first includes warm-up)
+        prof_chunk = 1 if cfg.profile_dir else -1
+        chunks_done = 0
+
+        steps_since_save = 0
+        for epoch in range(self.start_epoch, cfg.epoch):
+            idx_mat = self._epoch_steps(epoch)
+            win_t = time.time()
+            # Mid-epoch resume: skipping the consumed steps reproduces the
+            # remaining stream; theta depends only on the per-step sequence,
+            # not on how it is chunked into windows.
+            skip = self.start_batch if epoch == self.start_epoch else 0
+            for start in range(skip, steps_per_epoch, window):
+                chunk = idx_mat[start:start + window]
+                prof = (_start_trace(self.device)
+                        if chunks_done == prof_chunk else None)
+                m = self.learner.train_steps_from_compact(chunk)
+                m = {k: v.cpu().numpy() for k, v in m.items()}  # sync point
+                if prof is not None:
+                    self._stop_trace(prof)
+                chunks_done += 1
+                dt = max(time.time() - win_t, 1e-9)
+                win_t = time.time()
+                n_steps = int(chunk.shape[0])
+                self.global_step += n_steps
+                self._log_window(epoch, start, n_steps, m, dt, mean_edges)
+                steps_since_save += n_steps
+                if (cfg.checkpoint_every_steps
+                        and steps_since_save >= cfg.checkpoint_every_steps):
+                    # window-granular mid-epoch snapshot: `start + n_steps`
+                    # steps of this epoch are consumed
+                    self._save(epoch, batch_in_epoch=start + n_steps)
+                    steps_since_save = 0
+            self._end_epoch(epoch)
+
+        return self._final_test(t_start)
+
+    def _fit_host_pool(self, pool_np: TaskBatch, t_start: float,
+                       mean_edges: float) -> FitResult:
+        """Windowed host-resident pool: the packed pool lives in host
+        memory; each K = cfg.host_pool_window meta-steps run over one window
+        buffer. A producer thread gathers and encodes the windows (queue
+        depth 2). On CUDA it encodes into one of two pinned buffers, which
+        the main thread copies to the device without blocking on a copy
+        stream; a buffer is refilled only after its copy's event completed.
+        Window N's metrics (and, where it saves, theta and the Adam state)
+        are copied to the host in stream order right after its steps, and
+        read after window N+1 is enqueued, so the host's gather, encode and
+        copy of a window overlap the previous window's device work. Its
+        seconds are measured between stream-ordered marks (_StreamClock),
+        since the host clock runs up to a window ahead of the card."""
+        cfg = self.cfg
+        n_tasks = len(self.datasets["train"])
+        steps_per_epoch = n_tasks // cfg.task_num
+        window = max(1, min(cfg.host_pool_window, steps_per_epoch))
+
+        # (pinned buffer, event of its last copy) pairs free to fill
+        free = None
+        if self.device.type == "cuda":
+            words = (MetaLearner.compact_pool_bytes(pool_np) // (4 * n_tasks)
+                     * window * cfg.task_num)
+            free = queue.Queue()
+            for _ in range(2):
+                free.put((torch.empty(words, dtype=torch.int32,
+                                      pin_memory=True), None))
+        prof_window = 1 if cfg.profile_dir else -1
+        windows_done = 0
+        clock = _StreamClock(self.device)
+
+        steps_since_save = 0
+        for epoch in range(self.start_epoch, cfg.epoch):
+            idx_mat = self._epoch_steps(epoch)
+            skip = self.start_batch if epoch == self.start_epoch else 0
+            starts = list(range(skip, steps_per_epoch, window))
+            q: "queue.Queue" = queue.Queue(maxsize=2)
+            stop = threading.Event()
+
+            def produce():
+                try:
+                    for start in starts:
+                        if stop.is_set():
+                            return
+                        rows = idx_mat[start:start + window]
+                        slot = out = None
+                        if free is not None:
+                            slot, copied = free.get()
+                            if copied is not None:
+                                copied.synchronize()
+                            out = slot.numpy()
+                        buf, codec = self.learner.encode_window(
+                            take_tasks(pool_np, rows.reshape(-1)),
+                            cfg.task_num, out=out)
+                        if slot is not None:
+                            buf = slot[:buf.size]
+                        q.put((start, int(rows.shape[0]), buf, codec, slot))
+                    q.put(None)
+                except BaseException as e:  # noqa: BLE001 — re-raised below
+                    q.put(e)
+
+            def consume(p, epoch=epoch):
+                start, n_steps, (m, snap), landed, t0, t1 = p
+                if landed is not None:
+                    landed.synchronize()          # window N only, not N+1
+                m = {k: v.numpy() for k, v in m.items()}
+                dt = max(clock.seconds(t0, t1), 1e-9)
+                self.global_step += n_steps
+                self._log_window(epoch, start, n_steps, m, dt, mean_edges)
+                if snap is not None:
+                    self._save(epoch, batch_in_epoch=start + n_steps,
+                               params=snap[0], opt_state=snap[1])
+
+            th = threading.Thread(target=produce, daemon=True)
+            th.start()
+            pending = None     # (start, n_steps, host copies, event, marks)
+            prof = None
+            mark = clock.mark()
+            try:
+                while True:
+                    item = q.get()
+                    if item is None:
+                        break
+                    if isinstance(item, BaseException):
+                        raise item
+                    start, n_steps, buf, codec, slot = item
+                    if windows_done == prof_window:
+                        prof = _start_trace(self.device)
+                    dev, copied = self.learner.put_buffer(buf, codec)
+                    if slot is not None:
+                        free.put((slot, copied))
+                    m = self.learner.train_steps_from_window(
+                        dev, cfg.task_num)
+                    end = clock.mark()
+                    steps_since_save += n_steps
+                    snap = None
+                    if (cfg.checkpoint_dir and cfg.checkpoint_every_steps
+                            and steps_since_save
+                            >= cfg.checkpoint_every_steps):
+                        # theta is updated in place: the copies below are
+                        # taken in stream order, before the next window's
+                        # steps change it
+                        snap = (self.learner.params, self.learner.opt_state)
+                        steps_since_save = 0
+                    copies, landed = _host_copies((m, snap), self.device)
+                    if pending is not None:
+                        consume(pending)
+                        if windows_done == prof_window + 1:
+                            self._stop_trace(prof)
+                            prof = None
+                    pending = (start, n_steps, copies, landed, mark, end)
+                    mark = end
+                    windows_done += 1
+                if pending is not None:
+                    consume(pending)
+                if prof is not None:
+                    self._stop_trace(prof)
+            finally:
+                # a loop that stopped early leaves the producer blocked on
+                # the queue or on a free buffer: release it and wait for it
+                stop.set()
+                while th.is_alive():
+                    try:
+                        item = q.get(timeout=0.1)
+                    except queue.Empty:
+                        continue
+                    if isinstance(item, tuple) and item[-1] is not None:
+                        free.put((item[-1], None))
+                th.join()
+            self._end_epoch(epoch)
 
         return self._final_test(t_start)
 
@@ -205,7 +542,7 @@ class Trainer:
             best_test_acc=float(best_mean[-1]),
             early_stopped_ref=float(contaminated[-1]),
             val_max_acc=self.max_acc,
-            epochs_run=cfg.epoch,
+            epochs_run=cfg.epoch - self._fit_from_epoch,
             global_step=self.global_step)
         self.metrics.log("fit_result", **dataclasses.asdict(result))
         return result
@@ -219,6 +556,85 @@ def _step_done(device: torch.device):
     ev = torch.cuda.Event()
     ev.record(torch.cuda.current_stream(device))
     return ev
+
+
+def _host_copies(tree, device: torch.device):
+    """Host copies of the tensors in a tree of dicts, tuples and
+    NamedTuples, taken in stream order, so that later in-place updates do
+    not reach them. On CUDA they go to pinned memory without waiting for
+    the card, and the returned event completes when they have landed (with
+    the work queued so far, not any queued later); elsewhere they are
+    plain clones and the event is None."""
+    cuda = device.type == "cuda"
+
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach()
+            if not cuda:
+                return x.clone()
+            return torch.empty(x.shape, dtype=x.dtype,
+                               pin_memory=True).copy_(x, non_blocking=True)
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*map(copy, x))
+        if isinstance(x, (tuple, list)):
+            return type(x)(map(copy, x))
+        return x
+
+    out = copy(tree)
+    if not cuda:
+        return out, None
+    landed = torch.cuda.Event()
+    landed.record(torch.cuda.current_stream(device))
+    return out, landed
+
+
+class _StreamClock:
+    """Points in the compute stream's order and the seconds between them:
+    CUDA timing events on a CUDA device, where the host runs ahead of the
+    card and its clock would time the enqueueing; the host clock elsewhere,
+    where each op has finished when it returns."""
+
+    def __init__(self, device: torch.device):
+        self.device = device if device.type == "cuda" else None
+
+    def mark(self):
+        if self.device is None:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    @staticmethod
+    def seconds(a, b) -> float:
+        """Seconds from mark a to mark b; both must have completed."""
+        if isinstance(a, float):
+            return b - a
+        return a.elapsed_time(b) / 1e3
+
+
+def _start_trace(device: torch.device):
+    """Start torch.profiler: host activity, and the card's on CUDA."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_trace(prof, out_dir: str, device: torch.device, name: str) -> str:
+    """Stop a profiler once the device has finished the traced work, and
+    write its Chrome trace into out_dir; returns the file's path."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"trace_{name}.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 # ---- dataset assembly ------------------------------------------------------

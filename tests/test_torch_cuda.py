@@ -1,6 +1,7 @@
-"""The CUDA kernel of gmeta_tpu_torch against its plain version, on the
-card. Marked `cuda`: they skip where there is no CUDA device (the kernel has
-no CPU mode; the CPU tests hold the plain version against the JAX package).
+"""The CUDA kernel of gmeta_tpu_torch against its plain version, and the
+pool modes' device decode, pinned window copies and fits, on the card.
+Marked `cuda`: they skip where there is no CUDA device (the kernel has no
+CPU mode; the CPU tests hold the plain version against the JAX package).
 This file imports neither jax nor the JAX package, so it also runs where
 those are absent:
 
@@ -11,8 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from gmeta_tpu_torch.config import Config, build_model_config
+from gmeta_tpu_torch.data.synthetic import synthetic_disjoint
+from gmeta_tpu_torch.meta.maml import MetaLearner, take_tasks
 from gmeta_tpu_torch.ops import sized_spmm
 from gmeta_tpu_torch.ops.spmm import densify
+from gmeta_tpu_torch.run.train import Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -130,3 +135,77 @@ def test_wrapper_rejects_bad_inputs(cuda):
         sized_spmm.launch("fwd", graph, h[:1])
     with pytest.raises(ValueError):
         sized_spmm.launch("fwd", graph, h.cpu())
+
+
+# ---- pool and window modes on the card -------------------------------------
+
+def _tiny():
+    return synthetic_disjoint(num_graphs=1, nodes_per_graph=150,
+                              avg_degree=5, feat_dim=8, num_classes=9,
+                              n_way=3, k_spt=3, k_qry=4, batchsz=12, h=2,
+                              sample_nodes=60, seed=3)
+
+
+def _learner(store, device):
+    ml = MetaLearner(build_model_config(Config(hidden_dim=16),
+                                        store.feat_dim, 3), 3,
+                     update_lr=0.05, meta_lr=1e-3, update_step=2,
+                     update_step_test=2, seed=5, agg="sized", device=device)
+    ml.set_features(store.features)
+    return ml
+
+
+def test_device_decode_equals_cpu_decode(cuda):
+    """A pinned window buffer copied on the copy stream decodes on the card
+    to what the CPU decodes."""
+    store, ds = _tiny()
+    chunk = take_tasks(ds["train"].stacked_pool(), np.arange(8))
+    buf, codec = MetaLearner.encode_window(chunk, 4)
+    cpu, gpu = _learner(store, "cpu"), _learner(store, cuda)
+    want = cpu._decode_window(cpu.put_buffer(buf, codec)[0])
+    dev, copied = gpu.put_buffer(torch.from_numpy(buf).pin_memory(), codec)
+    assert copied is not None and dev.is_cuda
+    got = gpu._decode_window(dev)
+    torch.cuda.synchronize()
+    assert copied.query()
+    for sg, wsg in zip(got, want):
+        for a, b in zip(sg, wsg):
+            assert a.is_cuda and a.dtype == b.dtype
+            assert torch.equal(a.cpu(), b)
+
+
+def test_compact_steps_equal_streaming_steps(cuda):
+    store, ds = _tiny()
+    pool = ds["train"].stacked_pool()
+    idx_mat = np.random.RandomState(2).permutation(12)[:8].reshape(2, 4)
+    ref, ml = _learner(store, cuda), _learner(store, cuda)
+    for rows in idx_mat:
+        ref.train_step(take_tasks(pool, rows))
+    ml.set_task_pool_compact(pool)
+    before = dict(sized_spmm.launches)
+    m = ml.train_steps_from_compact(idx_mat)
+    assert all(sized_spmm.launches[k] > before[k] for k in before)
+    assert m["meta_loss"].shape == (2,) and m["accs"].shape == (2, 3)
+    for a, b in zip(ml.params, ref.params):
+        assert torch.equal(a, b)
+
+
+def test_pinned_host_window_fit_equals_compact_fit(cuda):
+    store, ds = _tiny()
+    base = Config(n_way=3, k_spt=3, k_qry=4, h=2, hidden_dim=16, epoch=2,
+                  task_num=4, update_step=2, update_step_test=2,
+                  train_result_report_steps=2, agg="sized",
+                  device_task_pool=True)
+    compact = Trainer(base, store, ds, labels_num=3, device=cuda)
+    r_c = compact.fit()
+    host = Trainer(Config(**dict(vars(base), compact_pool_hbm_gb=0.0,
+                                 host_pool_window=2)),
+                   store, ds, labels_num=3, device=cuda)
+    hit = []
+    orig = host._fit_host_pool
+    host._fit_host_pool = lambda *a: hit.append(1) or orig(*a)
+    r_h = host.fit()
+    assert hit == [1] and host.learner._copy_stream is not None
+    for a, b in zip(compact.learner.params, host.learner.params):
+        assert torch.equal(a, b)
+    assert r_h == r_c and r_h.global_step == 6

@@ -1,6 +1,7 @@
 """The port stands alone: neither gmeta_tpu_torch nor its GPU scripts
 (chip_smoke.py, sweep_sized_spmm.py) import jax, optax or the JAX package,
-and a port train step leaves them unloaded."""
+and neither a port train step nor resuming from a checkpoint the JAX
+package wrote loads them."""
 
 import ast
 import os
@@ -52,9 +53,50 @@ print("LOADED", loaded)
 """
 
 
-def test_train_step_loads_no_jax():
+def _run(code):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    r = subprocess.run([sys.executable, "-c", STEP], cwd=ROOT, env=env,
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "LOADED []" in r.stdout, r.stdout
+
+
+def test_train_step_loads_no_jax():
+    _run(STEP)
+
+
+RESUME = """
+import sys
+from gmeta_tpu_torch.config import Config
+from gmeta_tpu_torch.data.synthetic import synthetic_disjoint
+from gmeta_tpu_torch.run.train import Trainer
+store, ds = synthetic_disjoint(num_graphs=1, nodes_per_graph=150,
+                               avg_degree=5, feat_dim=8, num_classes=9,
+                               batchsz=4, sample_nodes=40, seed=1)
+tr = Trainer(Config(hidden_dim=8, checkpoint_dir=sys.argv[1]), store, ds,
+             labels_num=3, device="cpu")
+assert (tr.start_epoch, tr.global_step) == (2, 9), tr.start_epoch
+assert int(tr.learner.opt_state.count) == 9
+loaded = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "optax", "gmeta_tpu"))
+print("LOADED", loaded)
+"""
+
+
+def test_resume_of_a_jax_checkpoint_loads_no_jax(tmp_path):
+    """The checkpoint reader maps optax's classes itself: restoring what
+    the JAX package wrote imports neither optax, jax nor gmeta_tpu."""
+    import jax
+    import optax
+    from gmeta_tpu.config import Config, build_model_config
+    from gmeta_tpu.models.gcn import init_params
+    from gmeta_tpu.utils import checkpoint as jckpt
+
+    spec = build_model_config(Config(hidden_dim=8), 8, 3)
+    params = init_params(jax.random.PRNGKey(0), spec)
+    opt = optax.adam(1e-3).init(params)
+    opt = (opt[0]._replace(count=opt[0].count + 9), opt[1])
+    jckpt.save(str(tmp_path), 9, dict(
+        params=params, opt_state=opt, best_params=params, max_acc=0.4,
+        epoch=1, batch_in_epoch=-1, step=9))
+    _run(RESUME.replace("sys.argv[1]", repr(str(tmp_path))))

@@ -83,9 +83,7 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
         train_mod.main(["--data_dir", "unused"])
 
 
-@pytest.mark.parametrize("override", [
-    dict(checkpoint_dir="ckpt"), dict(device_task_pool=True),
-    dict(profile_dir="trace"), dict(remat_inner=True)])
+@pytest.mark.parametrize("override", [dict(remat_inner=True)])
 def test_unported_options_raise(override):
     store, ds = synthetic_disjoint(**DATA)
     with pytest.raises(NotImplementedError, match="not ported"):
