@@ -60,6 +60,7 @@ or the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import shutil
@@ -445,7 +446,9 @@ def run_mode(cfg, store, ds, mode, kill_after_windows=0):
             return orig(idx_mat)
         trainer.learner.train_steps_from_compact = killing
     start = (trainer.start_epoch, trainer.start_batch, trainer.global_step)
+    gc.collect()            # earlier fits' trainers (the spies make cycles)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for k in sp.launches:
         sp.launches[k] = 0
