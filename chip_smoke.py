@@ -50,11 +50,30 @@ Phases; any failure raises and the script exits non-zero:
                 that checkpoints every window is killed after its first
                 window and resumed mid-epoch by a fresh Trainer; its theta
                 must equal the straight compact fit's (rtol 1e-5).
+  9. cli      — the CLI from disk: prepare, extract, remat.
+                (a) phase 4's graph written with the port's
+                prepare_node_disjoint under build/chip_smoke_data/ (3 labels
+                each for val and test); (b) build_datasets three times,
+                timed: extractor numpy, native cold (writes the disk cache),
+                native from the cache; the two native builds must give
+                bitwise-equal episodes and packed batches; each engine's
+                extractions/s, the host's CPU count and the cache's bytes;
+                (c) the device extractor on the card over the first train
+                batch's centers at several centers per pass, each
+                uncapped center bit-equal to the native engine; (d) main()
+                with --preset arxiv --agg sized --extractor native
+                --batchsz 192 --eval_batchsz 48 --epoch 1, remat_inner on
+                and off in turns: both kernels launch in every fit (counts
+                set to 0 before each), theta equal (bitwise or rtol 1e-6),
+                peak device memory and warm tasks/s of each; (e) isolated
+                second-order meta-steps at arxiv width (task_vmap_chunk 8),
+                remat on and off in turns, seconds and peak memory.
 
-Prints the kernels' JSON line, the slice's JSON line (with the modes' warm
-tasks/s, data_s and peak device memory under "modes"), the card's name and
-power limit, and last {"ok": true, "device": {...}}. Imports nothing of JAX
-or the JAX package.
+Phase 2 builds the CUDA kernel (nvcc) and the host extraction engine (g++)
+at once. Prints the kernels' JSON line, the slice's JSON line (with the
+modes' warm tasks/s, data_s and peak device memory under "modes" and phase
+9's numbers under "cli"), the card's name and power limit, and last
+{"ok": true, "device": {...}}. Imports nothing of JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -63,10 +82,12 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 FP32_PEAK = 67e12      # H100 SXM float32 FLOP/s outside the tensor cores
@@ -588,6 +609,311 @@ def fit_modes(cfg, store, ds):
     return summary, launches
 
 
+# ---- phase 9: the CLI from disk: prepare, extract, remat -------------------
+
+DATA_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_data"
+
+
+def prepare_arxiv_dir(store, ds, seed=7):
+    """9a: phase 4's graph, features and labels written by the port's
+    prepare_node_disjoint. Returns (directory, seconds)."""
+    import numpy as np
+    from gmeta_tpu_torch.data.prepare import prepare_node_disjoint
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    labels = ds["train"].labels
+    V = store.graphs[0].num_nodes
+    y = np.array([labels[f"0_{n}"] for n in range(V)], np.int64)
+    t0 = time.time()
+    prepare_node_disjoint(str(DATA_DIR), store.graphs, [store.features],
+                          [y], num_label_set=3, seed=seed)
+    return DATA_DIR, time.time() - t0
+
+
+def assert_same_datasets(a, b):
+    """Bitwise-equal episodes (names, relabelled classes, subgraphs) and
+    packed pools of every split."""
+    import numpy as np
+    for split in ("train", "val", "test"):
+        x, y = a[split], b[split]
+        assert x.sampler.support_x_batch == y.sampler.support_x_batch
+        assert x.sampler.query_x_batch == y.sampler.query_x_batch
+        for s, t in zip(x.tasks, y.tasks):
+            for f in ("spt_labels", "qry_labels"):
+                np.testing.assert_array_equal(getattr(s, f), getattr(t, f))
+            for u, v in zip(s.spt_subs + s.qry_subs, t.spt_subs + t.qry_subs):
+                for f in ("parents", "centers", "edge_src", "edge_dst"):
+                    assert np.array_equal(getattr(u, f), getattr(v, f)), f
+        px, py = x.stacked_pool(), y.stacked_pool()
+        for u, v in zip(px.spt + px.qry, py.spt + py.qry):
+            assert (u is None and v is None) or np.array_equal(u, v)
+
+
+def build_three_ways(cfg):
+    """9b: build_datasets with the numpy extractor, the native one cold
+    (writing the cache) and the native one from the cache, then each
+    engine's own rate over the names it extracted. Returns (the native
+    datasets, summary)."""
+    import numpy as np
+    from gmeta_tpu_torch.data import extract_cache, native
+    from gmeta_tpu_torch.data.extract import SubgraphExtractor
+    from gmeta_tpu_torch.run.train import build_datasets
+    cache = extract_cache.cache_path(str(DATA_DIR), cfg.h, cfg.sample_nodes,
+                                     cfg.cap_strategy)
+    assert not os.path.exists(cache)
+    out, built = {}, {}
+    for what, extractor in (("numpy", "numpy"), ("native_cold", "native"),
+                            ("native_cached", "native")):
+        gc.collect()
+        t0 = time.time()
+        store, ds, _ = build_datasets(dataclasses.replace(
+            cfg, extractor=extractor))
+        seconds = time.time() - t0
+        ex = ds["train"].extractor
+        assert isinstance(ex, native.NativeSubgraphExtractor) == (
+            extractor == "native")
+        built[what] = (store, ds)
+        out[what] = {"build_s": seconds, "subgraphs": len(ex.cache),
+                     "extractions_per_s_build": len(ex.cache) / seconds}
+        log(f"  build_datasets {what}: {seconds:.2f} s, {len(ex.cache)} "
+            f"subgraphs")
+    assert os.path.exists(cache)
+    out["cache_bytes"] = os.path.getsize(cache)
+    store, ds = built["native_cold"]
+    assert_same_datasets(ds, built["native_cached"][1])
+    # the engines alone, on the names this split set needed
+    names = sorted(ds["train"].extractor.cache)
+    t0 = time.time()
+    fresh = native.NativeSubgraphExtractor(
+        store.graphs, h=cfg.h, sample_nodes=cfg.sample_nodes, seed=cfg.seed)
+    fresh.extract_many(names)
+    native_s = time.time() - t0
+    sub = names[:1000]
+    oracle = SubgraphExtractor(store.graphs, h=cfg.h,
+                               sample_nodes=cfg.sample_nodes, seed=cfg.seed)
+    t0 = time.time()
+    for n in sub:
+        oracle.extract(n)
+    numpy_s = time.time() - t0
+    capped = sum(ds["train"].extractor.cache[n].num_nodes
+                 >= cfg.sample_nodes for n in names)
+    same_uncapped = all(
+        np.array_equal(oracle.cache[n].parents, fresh.cache[n].parents)
+        and np.array_equal(oracle.cache[n].edge_src, fresh.cache[n].edge_src)
+        for n in sub if fresh.cache[n].num_nodes < cfg.sample_nodes)
+    assert same_uncapped
+    out.update(
+        names=len(names), capped=capped, host_cpus=os.cpu_count(),
+        native_threads=fresh.engine.n_threads,
+        native_extractions_per_s=len(names) / native_s,
+        numpy_extractions_per_s=len(sub) / numpy_s)
+    log(f"  engines alone: native {out['native_extractions_per_s']:.0f} "
+        f"extractions/s ({len(names)} names, {fresh.engine.n_threads} "
+        f"threads on {os.cpu_count()} host CPUs), numpy "
+        f"{out['numpy_extractions_per_s']:.1f}/s ({len(sub)} names); "
+        f"{capped} of {len(names)} subgraphs capped; cache "
+        f"{out['cache_bytes']} bytes")
+    return store, ds, out
+
+
+def device_extract_check(store, ds, cfg, device):
+    """9c: the device extractor over the first train batch's centers,
+    every uncapped center bit-equal to the native engine, at several
+    centers per pass."""
+    import numpy as np
+    import torch
+    from gmeta_tpu_torch.data.device_extract import DeviceExtractor
+    tr = ds["train"]
+    names = sorted({n for i in range(cfg.task_num)
+                    for group in (tr.sampler.support_x_batch[i],
+                                  tr.sampler.query_x_batch[i])
+                    for sub in group for n in sub})
+    centers = np.array([int(n.split("_")[1]) for n in names])
+    native_cache = tr.extractor.cache
+    runs = {}
+    for chunk in (64, 256, 1024):
+        dx = DeviceExtractor(store.graphs[0], h=cfg.h,
+                             sample_nodes=cfg.sample_nodes, device=device,
+                             seed=cfg.seed, chunk=chunk)
+        dx.extract_arrays(centers[:chunk])            # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        arrays = dx.extract_arrays(centers)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        runs[chunk] = {"s": seconds, "extractions_per_s":
+                       len(centers) / seconds,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"  device extractor, {chunk} centers per pass: {seconds:.3f} s "
+            f"for {len(centers)} centers "
+            f"({runs[chunk]['extractions_per_s']:.0f}/s), peak "
+            f"{runs[chunk]['peak_gb']:.2f} GB")
+    a = {f: x.cpu().numpy() for f, x in zip(arrays._fields, arrays)}
+    assert not a["overflow"].any()
+    uncapped = np.flatnonzero(a["n_full"] <= cfg.sample_nodes)
+    for k in uncapped:
+        ref = native_cache[names[k]]
+        n, e = int(a["n_nodes"][k]), int(a["n_edges"][k])
+        assert np.array_equal(a["parents"][k, :n], ref.parents), names[k]
+        assert np.array_equal(a["centers_local"][k], ref.centers)
+        assert np.array_equal(a["edge_src"][k, :e], ref.edge_src)
+        assert np.array_equal(a["edge_dst"][k, :e], ref.edge_dst)
+    log(f"  {len(uncapped)} of {len(centers)} centers uncapped, each "
+        f"bit-equal to the native engine")
+    del arrays, dx
+    torch.cuda.empty_cache()
+    return {"centers": len(centers), "uncapped": len(uncapped),
+            "by_chunk": runs}
+
+
+def cli_fit(remat, metrics_path, device):
+    """9d: one main() run from the prepared directory on the card, with the
+    Trainer it built. Returns its numbers."""
+    import torch
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    from gmeta_tpu_torch.run import train as train_mod
+    seen = []
+
+    class Seen(train_mod.Trainer):
+        def fit(self):
+            seen.append(self)
+            return super().fit()
+
+    argv = ["--preset", "arxiv", "--data_dir", str(DATA_DIR), "--agg",
+            "sized", "--extractor", "native", "--batchsz", "192",
+            "--eval_batchsz", "48", "--epoch", "1", "--dtype", "float32",
+            "--train_result_report_steps", "1", "--remat_inner",
+            str(remat), "--metrics_path", str(metrics_path)]
+    if metrics_path.exists():
+        metrics_path.unlink()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in sp.launches:
+        sp.launches[k] = 0
+    orig, train_mod.Trainer = train_mod.Trainer, Seen
+    t0 = time.time()
+    try:
+        result = train_mod.main(argv)
+    finally:
+        train_mod.Trainer = orig
+    torch.cuda.synchronize()
+    out = {"remat": remat, "main_s": time.time() - t0,
+           "launches": dict(sp.launches),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "result": dataclasses.asdict(result)}
+    trainer, = seen
+    assert trainer.device.type == device.type and trainer.agg == "sized"
+    assert trainer.cfg.remat_inner == remat
+    out["theta"] = [p.detach().cpu().numpy() for p in trainer.learner.params]
+    recs = [json.loads(line) for line in open(metrics_path)]
+    steps = [r for r in recs if r["kind"] == "train_step"]
+    assert len(steps) == 6 and result.global_step == 6, steps
+    for r in steps:
+        assert math.isfinite(r["meta_loss"]) and r["nan_skip"] == 0, r
+    out["tasks_per_s"] = [r["tasks_per_s"] for r in steps]
+    out["warm_tasks_per_s"] = 5 * trainer.cfg.task_num / sum(
+        trainer.cfg.task_num / r["tasks_per_s"] for r in steps[1:])
+    assert out["launches"]["fwd"] > 0 and out["launches"]["bwd"] > 0, out
+    log(f"  main remat_inner={remat}: {out['main_s']:.1f} s, warm "
+        f"{out['warm_tasks_per_s']:.2f} tasks/s, peak {out['peak_gb']:.2f} "
+        f"GB, launches {out['launches']}")
+    del trainer, seen
+    return out
+
+
+def second_order_steps(store, ds, cfg, device, chunk=8):
+    """9e: isolated meta-steps at arxiv width with first_order=False and
+    task_vmap_chunk `chunk`, remat on and off in turns."""
+    import torch
+    from gmeta_tpu_torch.config import build_model_config
+    from gmeta_tpu_torch.meta.maml import MetaLearner
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    spec = build_model_config(cfg, store.feat_dim, cfg.n_way)
+    batch = next(ds["train"].batches(cfg.task_num, shuffle=False))
+    runs = {True: [], False: []}
+    launches = {"fwd": 0, "bwd": 0}
+    thetas = {}
+    for remat in (True, False, False, True):
+        ml = MetaLearner(spec, cfg.n_way, update_lr=cfg.update_lr,
+                         meta_lr=cfg.meta_lr, update_step=cfg.update_step,
+                         update_step_test=cfg.update_step_test,
+                         first_order=False, remat=remat, seed=cfg.seed,
+                         agg="sized", task_chunk=chunk, device=device)
+        ml.set_features(store.features)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(sp.launches)
+        seconds = step_seconds(ml, batch)
+        for k in launches:
+            launches[k] += sp.launches[k] - before[k]
+        runs[remat].append({"s": seconds, "peak_gb":
+                            torch.cuda.max_memory_allocated() / 1e9})
+        thetas.setdefault(remat, [p.detach().cpu().numpy()
+                                  for p in ml.params])
+        del ml
+    diff = max_rel(thetas[True], thetas[False], skip_last=True)
+    assert_theta_close(thetas[True], thetas[False], 1e-6, 1, cfg.meta_lr,
+                       "second-order remat vs plain")
+    log(f"  second-order meta-step, {cfg.task_num} tasks in chunks of "
+        f"{chunk}: remat {[round(r['s'], 3) for r in runs[True]]} s, peak "
+        f"{[round(r['peak_gb'], 2) for r in runs[True]]} GB; plain "
+        f"{[round(r['s'], 3) for r in runs[False]]} s, peak "
+        f"{[round(r['peak_gb'], 2) for r in runs[False]]} GB; theta diff "
+        f"{diff}")
+    return {"chunk": chunk, "remat": runs[True], "plain": runs[False],
+            "theta_diff": diff}, launches
+
+
+def cli_phase(store4, ds4, device):
+    """Phase 9. Returns (summary, launches summed over its fits and
+    steps)."""
+    import numpy as np
+    from gmeta_tpu_torch.config import PRESETS
+    t0 = time.time()
+    data_dir, prep_s = prepare_arxiv_dir(store4, ds4)
+    size = sum(f.stat().st_size for f in data_dir.rglob("*") if f.is_file())
+    log(f"  9a prepare_node_disjoint: {prep_s:.1f} s, {size} bytes under "
+        f"{data_dir.name}/")
+    cfg = dataclasses.replace(PRESETS["arxiv"], data_dir=str(data_dir),
+                              agg="sized", batchsz=192, eval_batchsz=48,
+                              epoch=1, dtype="float32")
+    store, ds, builds = build_three_ways(cfg)
+    extract = device_extract_check(store, ds, cfg, device)
+    fits = {True: [], False: []}
+    launches = {"fwd": 0, "bwd": 0}
+    for i, remat in enumerate((True, False, False, True)):
+        r = cli_fit(remat, data_dir / f"metrics_{i}.jsonl", device)
+        fits[remat].append(r)
+        for k in launches:
+            launches[k] += r["launches"][k]
+    a, b = fits[True][0]["theta"], fits[False][0]["theta"]
+    steps = 6
+    if any(not np.array_equal(x, y) for x, y in zip(a, b)):
+        assert_theta_close(a, b, 1e-6, steps, cfg.meta_lr,
+                           "remat vs plain fit")
+    fit_diff = max_rel(a, b)
+    for rs in fits.values():
+        assert max_rel(rs[0]["theta"], rs[1]["theta"])[0] == 0.0
+    log(f"  theta remat vs plain (max abs, max rel): {fit_diff}")
+    second, second_launches = second_order_steps(store, ds, cfg, device)
+    for k in launches:
+        launches[k] += second_launches[k]
+    summary = {"prepare_s": prep_s, "data_bytes": size, "builds": builds,
+               "device_extract": extract, "fit_theta_diff": fit_diff,
+               "second_order": second, "phase_s": time.time() - t0}
+    for remat, rs in fits.items():
+        summary[f"fit_remat_{remat}"] = {
+            k: [r[k] for r in rs] for k in
+            ("main_s", "warm_tasks_per_s", "tasks_per_s", "peak_gb",
+             "launches")}
+    shutil.rmtree(data_dir, ignore_errors=True)
+    return summary, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -611,9 +937,17 @@ def main():
     resolve_device(device)          # TF32 off, as on the port's paths
 
     t = phase("2 build")
-    path = cuda_build.build("sized_spmm")
+
+    def timed(fn, name):
+        t0 = time.time()
+        return fn(name), time.time() - t0
+    with ThreadPoolExecutor(2) as pool:      # nvcc and g++ at once
+        cu = pool.submit(timed, cuda_build.build, "sized_spmm")
+        cpp = pool.submit(timed, cuda_build.build_host, "extract")
+        (path, cu_s), (host_path, cpp_s) = cu.result(), cpp.result()
     build_s = time.time() - t
-    log(f"  sized_spmm.cu -> {path.name} in {build_s:.1f} s")
+    log(f"  sized_spmm.cu -> {path.name} in {cu_s:.1f} s; extract.cpp -> "
+        f"{host_path.name} in {cpp_s:.1f} s; both {build_s:.1f} s")
     log("  " + path.with_suffix(".ptxas.txt").read_text()
         .strip().replace("\n", "\n  "))
 
@@ -716,6 +1050,11 @@ def main():
     log(f"  {time.time() - t:.1f} s; kernel launches of phase 8 "
         f"{mode_launches}")
 
+    t = phase("9 the CLI from disk: prepare, extract, remat")
+    cli, cli_launches = cli_phase(store, ds, device)
+    log(f"  {time.time() - t:.1f} s; kernel launches of phase 9 "
+        f"{cli_launches}")
+
     kernels = []
     for direction, line in (("fwd", 39), ("bwd", 80)):
         head = timing[(direction, 256)]
@@ -724,7 +1063,11 @@ def main():
             "route": "cuda",
             "source": "gmeta_tpu_torch/csrc/sized_spmm.cu",
             "replaces": f"gmeta_tpu/ops/pallas_spmm.py:{line}",
-            "launches": main_path[direction] + mode_launches[direction],
+            "launches": (main_path[direction] + mode_launches[direction]
+                         + cli_launches[direction]),
+            "launches_by_phase": {"7": main_path[direction],
+                                  "8": mode_launches[direction],
+                                  "9": cli_launches[direction]},
             "max_abs_err": max(errs[direction]["float32"],
                                head["max_abs_err"]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -744,7 +1087,7 @@ def main():
         "step_compute_s": [r["compute_s"] for r in steps],
         "dense_step_s": dense_s, "step_s_turns": turns,
         "step_peak_gb": peaks, "profile": breakdown,
-        "result": dataclasses.asdict(result), "modes": modes,
+        "result": dataclasses.asdict(result), "modes": modes, "cli": cli,
         "card": card}}))
     log(card)
     print(json.dumps({"ok": True, "device": {

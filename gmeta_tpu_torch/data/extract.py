@@ -20,8 +20,8 @@ of per-node Python loops over a DGL graph:
 - memoized per name, like `self.subgraphs` (:296-297,319) — but shared
   process-wide instead of silently diverging per DataLoader worker
 
-This is the port's only extractor so far; the native C++ engine of the JAX
-package comes to the port in a later slice.
+This is the oracle and the fallback; data/native.py is the threaded C++
+engine that `build_datasets` prefers where it can be built.
 """
 
 from __future__ import annotations

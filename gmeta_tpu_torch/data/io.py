@@ -3,7 +3,7 @@
 On-disk contract (G-Meta/README.md:188-203, loaded at train.py:41-53 and
 subgraph_data_processing.py:36-40,119-148):
   - graph_dgl.pkl : list of DGL graphs (needs dgl to unpickle; we also accept
-    a native `graphs.npz` with CSR arrays)
+    a native `graphs.npz` with CSR arrays, and provide a converter)
   - features.npy  : object array of per-graph feature matrices (2-D = single
     graph, auto-wrapped like train.py:63-65)
   - label.pkl     : dict 'G_N' -> label (nodes) or 'G_U_V' -> {0,1} (edges)
@@ -88,6 +88,29 @@ def load_graphs_npz(path: str) -> List[CSRGraph]:
             for i in range(n)]
 
 
+def _csr_from_dgl(dgl_graphs) -> List[CSRGraph]:
+    """CSRGraphs of unpickled DGL graphs. Edge direction is preserved
+    exactly: CSR row v lists the sources of v's in-edges, i.e. DGL's
+    `G.in_edges(v)[0]`."""
+    out = []
+    for G in dgl_graphs:
+        src, dst = G.all_edges()
+        out.append(CSRGraph.from_edges(
+            np.asarray(src), np.asarray(dst), G.number_of_nodes()))
+    return out
+
+
+def convert_dgl_pickle(pkl_path: str, out_path: str) -> None:
+    """Convert the reference's graph_dgl.pkl into native graphs.npz.
+
+    Unpickling needs dgl (and torch) at conversion time only, and dgl is
+    imported by pickle, never by this module; the training path never
+    touches DGL."""
+    with open(pkl_path, "rb") as f:
+        dgl_graphs = pickle.load(f)
+    save_graphs_npz(out_path, _csr_from_dgl(dgl_graphs))
+
+
 def load_graph_list(root: str) -> List[CSRGraph]:
     npz = os.path.join(root, "graphs.npz")
     if os.path.exists(npz):
@@ -98,18 +121,13 @@ def load_graph_list(root: str) -> List[CSRGraph]:
             import dgl  # noqa: F401
         except ImportError as e:
             raise RuntimeError(
-                f"{pkl} needs dgl to unpickle. Convert it to graphs.npz on a "
-                "machine with dgl (the converter, convert_dgl_pickle, is "
-                "not ported yet), or provide graphs.npz directly."
+                f"{pkl} needs dgl to unpickle. Run "
+                "gmeta_tpu_torch.data.io.convert_dgl_pickle on a machine "
+                "with dgl to produce graphs.npz, or provide graphs.npz "
+                "directly."
             ) from e
         with open(pkl, "rb") as f:
-            dgl_graphs = pickle.load(f)
-        out = []
-        for G in dgl_graphs:
-            src, dst = G.all_edges()
-            out.append(CSRGraph.from_edges(
-                np.asarray(src), np.asarray(dst), G.number_of_nodes()))
-        return out
+            return _csr_from_dgl(pickle.load(f))
     raise FileNotFoundError(f"no graphs.npz or graph_dgl.pkl under {root}")
 
 

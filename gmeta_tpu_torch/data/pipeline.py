@@ -86,6 +86,16 @@ class MetaDataset:
             task_setup, link_pred_mode, n_way, k_spt, k_qry, batchsz,
             index, index_spt=index_spt, index_qry=index_qry, seed=seed)
 
+        # Native backend: pre-warm the cache with one threaded batch call
+        # over every unique name in the pre-sampled episode pool.
+        if hasattr(extractor, "extract_many"):
+            all_names = sorted({
+                n for i in range(batchsz)
+                for group in (self.sampler.support_x_batch[i],
+                              self.sampler.query_x_batch[i])
+                for sub in group for n in sub})
+            extractor.extract_many(all_names)
+
         self.tasks: List[_RawTask] = [
             self._materialize(i) for i in range(batchsz)]
 

@@ -21,6 +21,9 @@ pool and window modes:
   Adam equal to optax.adam), with the reference's NaN skip guard
   (meta.py:161-169) done by torch.where on the device — no host sync —
   and counted as a metric.
+- `remat` recomputes each inner step in the backward instead of keeping
+  its activations (the JAX package's `jax.checkpoint(step)`), through
+  `torch.utils.checkpoint` (see make_inner_loop for what it saves).
 - `task_chunk` > 0 runs the tasks in chunks; each chunk adds sum/T of its
   losses to the gradient, so the step equals the unchunked one while only
   one chunk's adjacencies and graphs are live.
@@ -35,10 +38,12 @@ pool and window modes:
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from gmeta_tpu_torch.data.pack import SubgraphSet, TaskBatch
 from gmeta_tpu_torch.meta.protonet import proto_loss_qry, proto_loss_spt
@@ -55,7 +60,7 @@ class InnerAux(NamedTuple):
 def make_inner_loop(layer_spec: Sequence[Tuple[str, tuple]],
                     proto_classes: int, update_lr: float,
                     num_steps: int, first_order: bool = True,
-                    compute_dtype=torch.float32,
+                    compute_dtype=torch.float32, remat: bool = False,
                     track_curve: bool = True, agg: str = "dense"):
     """Returns inner_loop(params, task: TaskBatch, feats) ->
     (meta_losses (T,), InnerAux). `params` is theta, shared by the T tasks
@@ -69,7 +74,28 @@ def make_inner_loop(layer_spec: Sequence[Tuple[str, tuple]],
     (finetuning): fast weights are re-leafed every step and nothing is kept.
 
     track_curve=False skips the per-step query evaluations (telemetry
-    only); the curve then holds the final eval in every slot."""
+    only); the curve then holds the final eval in every slot.
+
+    remat=True checkpoints each inner step (support forward, inner
+    gradient, fast-weight update, query evaluation) as one region of
+    `torch.utils.checkpoint.checkpoint(use_reentrant=False)`, the boundary
+    of the JAX package's `jax.checkpoint(step)`: of a step, only its input
+    fast weights are kept for the meta-gradient, and the backward reruns
+    the step to get the rest. The inner gradient is taken inside the
+    region, which makes PyTorch rerun the support forward once more in the
+    forward pass (the activations that gradient reads were not kept).
+    What it saves depends on the mode:
+    - first_order=False: without remat every step's support activations
+      and the graph of its inner gradient (create_graph) stay alive until
+      the meta-gradient, so memory grows with num_steps; with remat the
+      backward holds one step's graph at a time.
+    - first_order=True: every step's graph but the last is freed anyway
+      when its inner gradient is taken, so remat only drops the last
+      step's support and query activations, and the backward's
+      recomputation brings them back: the peak barely moves, and the
+      extra forwards cost time. Remat is off by default.
+    Only meta-training (grad mode on, theta requiring grad) checkpoints;
+    evaluation keeps nothing either way."""
 
     def inner_loop(params, task: TaskBatch, feats: torch.Tensor):
         T = task.spt.node_gid.shape[0]
@@ -105,9 +131,11 @@ def make_inner_loop(layer_spec: Sequence[Tuple[str, tuple]],
             q_losses.append(ql)
             q_accs.append(qa)
 
-        protos = None
-        for k in range(num_steps):
-            last = k == num_steps - 1
+        def step(last, *w):
+            """One inner step from fast weights w: (new fast weights,
+            support losses, prototypes, query loss, query accuracy); the
+            last two are None without track_curve."""
+            w = list(w)
             with torch.enable_grad():
                 loss_s, protos = spt(w)
                 g = torch.autograd.grad(
@@ -119,13 +147,25 @@ def make_inner_loop(layer_spec: Sequence[Tuple[str, tuple]],
             else:
                 w = [(p - update_lr * gi).detach().requires_grad_()
                      for p, gi in zip(w, g)]
-            s_losses.append(loss_s.detach())
+            ql = qa = None
             if track_curve:
                 if meta and last:
                     ql, qa = qry(w, protos)
                 else:
                     with torch.no_grad():
                         ql, qa = qry(w, protos)
+            return tuple(w), loss_s, protos, ql, qa
+
+        protos = None
+        for k in range(num_steps):
+            fn = functools.partial(step, k == num_steps - 1)
+            if remat and meta:
+                w, loss_s, protos, ql, qa = checkpoint(fn, *w,
+                                                       use_reentrant=False)
+            else:
+                w, loss_s, protos, ql, qa = fn(*w)
+            s_losses.append(loss_s.detach())
+            if track_curve:
                 q_losses.append(ql)
                 q_accs.append(qa)
 
@@ -229,8 +269,9 @@ class MetaLearner:
                  update_lr: float, meta_lr: float,
                  update_step: int, update_step_test: int,
                  first_order: bool = True, compute_dtype=torch.float32,
-                 seed: int = 222, track_curve: bool = True,
-                 agg: str = "dense", task_chunk: int = 0, device=None):
+                 remat: bool = False, seed: int = 222,
+                 track_curve: bool = True, agg: str = "dense",
+                 task_chunk: int = 0, device=None):
         self.device = resolve_device(device)
         self.layer_spec = layer_spec
         self.meta_lr = meta_lr
@@ -241,7 +282,7 @@ class MetaLearner:
         self._train_inner = make_inner_loop(
             layer_spec, proto_classes, update_lr, update_step,
             first_order=first_order, compute_dtype=compute_dtype,
-            track_curve=track_curve, agg=agg)
+            remat=remat, track_curve=track_curve, agg=agg)
         self._test_inner = make_inner_loop(
             layer_spec, proto_classes, update_lr, update_step_test,
             first_order=first_order, compute_dtype=compute_dtype, agg=agg)

@@ -22,7 +22,7 @@ contaminated by the previous test loop (train.py:130-146). Both
 reference-style numbers are reported alongside the clean ones.
 
 Not ported yet, and rejected with NotImplementedError rather than ignored:
-remat_inner, the native extractor, --mesh_tasks and --mesh_edges.
+--mesh_tasks and --mesh_edges.
 
 CLI: python -m gmeta_tpu_torch.run.train --preset arxiv --data_dir ...
      [--device cuda|cpu] [overrides]
@@ -50,12 +50,6 @@ from gmeta_tpu_torch.utils import checkpoint as ckpt
 from gmeta_tpu_torch.utils.device import resolve_device
 from gmeta_tpu_torch.utils.metrics import MetricLogger, StepTimer, rss_gb
 
-# What the port does not do yet, by Config field, and the slice that adds it.
-_LATER = {
-    "remat_inner": "inner-step recomputation",
-}
-
-
 @dataclasses.dataclass
 class FitResult:
     test_acc_ref: float            # reference-style: mean accs[1], last model
@@ -71,11 +65,6 @@ class Trainer:
     def __init__(self, cfg: Config, store, datasets: Dict[str, MetaDataset],
                  labels_num: int, metrics: Optional[MetricLogger] = None,
                  device=None):
-        for field, what in _LATER.items():
-            if getattr(cfg, field):
-                raise NotImplementedError(
-                    f"{field}: {what} is not ported to gmeta_tpu_torch yet "
-                    f"(a later slice of the port)")
         self.cfg = cfg
         self.store = store
         self.datasets = datasets
@@ -111,7 +100,8 @@ class Trainer:
             update_lr=cfg.update_lr, meta_lr=cfg.meta_lr,
             update_step=cfg.update_step, update_step_test=cfg.update_step_test,
             first_order=cfg.first_order, compute_dtype=compute_dtype,
-            seed=cfg.seed, track_curve=cfg.track_train_curve, agg=agg,
+            remat=cfg.remat_inner, seed=cfg.seed,
+            track_curve=cfg.track_train_curve, agg=agg,
             task_chunk=task_chunk, device=self.device)
         self.learner.set_features(store.features)
         self.metrics.echo_line(
@@ -641,23 +631,45 @@ def _stop_trace(prof, out_dir: str, device: torch.device, name: str) -> str:
 
 def build_datasets(cfg: Config):
     """Load an on-disk dataset (reference format) and build the three
-    episodic MetaDatasets. Returns (store, datasets, labels_num)."""
+    episodic MetaDatasets. Returns (store, datasets, labels_num).
+
+    The extractor: `native` is the C++ engine (data/native.py), or an error
+    where it cannot be built; `auto` is the engine where it can be built,
+    else numpy; `numpy` is the numpy path. With the engine and
+    `extract_disk_cache`, extractions are read from and written to a cache
+    beside the dataset (data/extract_cache.py)."""
+    from gmeta_tpu_torch.data import extract_cache, native
     from gmeta_tpu_torch.data.extract import SubgraphExtractor
     from gmeta_tpu_torch.data.io import Dataset
     from gmeta_tpu_torch.data.pipeline import map_labels
 
-    if cfg.extractor == "native":
-        raise NotImplementedError(
-            "extractor='native': the C++ extraction engine is not ported to "
-            "gmeta_tpu_torch yet (a later slice); use 'numpy' or 'auto'")
     data = Dataset(cfg.data_dir, cfg.task_setup, cfg.link_pred_mode,
                    task_mode=cfg.task_mode, task_n=cfg.task_n)
-    extractor = SubgraphExtractor(
-        data.store.graphs, h=cfg.h, sample_nodes=cfg.sample_nodes,
-        seed=cfg.seed, cap_strategy=cfg.cap_strategy)
-    # Which backend runs matters for throughput debugging: 'auto' resolves
-    # to numpy here, and says so.
-    print(f"extractor: numpy (requested {cfg.extractor!r})")
+    use_native = (cfg.extractor == "native"
+                  or (cfg.extractor == "auto" and native.available()))
+    cache_file = None
+    if use_native:
+        extractor = native.NativeSubgraphExtractor(
+            data.store.graphs, h=cfg.h, sample_nodes=cfg.sample_nodes,
+            seed=cfg.seed, n_threads=max(cfg.num_workers, 0),
+            cap_strategy=cfg.cap_strategy)
+        if cfg.extract_disk_cache:
+            # sound only for the native engine: its cap RNG is content-
+            # derived per name, so partial caches compose bit-exactly
+            cache_file = extract_cache.cache_path(
+                cfg.data_dir, cfg.h, cfg.sample_nodes, cfg.cap_strategy)
+            if os.path.exists(cache_file):
+                extractor.cache.update(extract_cache.load(cache_file))
+                print(f"extraction cache: {len(extractor.cache)} subgraphs "
+                      f"from {cache_file}")
+    else:
+        extractor = SubgraphExtractor(
+            data.store.graphs, h=cfg.h, sample_nodes=cfg.sample_nodes,
+            seed=cfg.seed, cap_strategy=cfg.cap_strategy)
+    # Which backend runs matters for throughput debugging: with
+    # extractor="auto" the numpy fallback is silent otherwise.
+    print(f"extractor: {'native C++' if use_native else 'numpy'} "
+          f"(requested {cfg.extractor!r})")
     # input_dim mirrors the reference: derived from the feature width at
     # load (train.py:67); a user-set nonzero value must agree with the data.
     if cfg.input_dim and cfg.input_dim != data.store.feat_dim:
@@ -680,6 +692,18 @@ def build_datasets(cfg: Config):
             batchsz=cfg.batchsz if mode == "train" else cfg.eval_batchsz,
             index_spt=split.get("spt"), index_qry=split.get("qry"),
             seed=cfg.seed + salt[mode], dense_labels=dense)
+    if cache_file is not None:
+        known = 0
+        if os.path.exists(cache_file):
+            known = len(np.load(cache_file, allow_pickle=False)["names"])
+        if len(extractor.cache) > known:
+            # drop only THIS parameterization's superseded caches; other
+            # (h, sample_nodes, cap) configs' caches stay valid
+            for stale in extract_cache.stale_paths(cfg.data_dir, cache_file):
+                os.remove(stale)
+            extract_cache.save(cache_file, extractor.cache)
+            print(f"extraction cache: wrote {len(extractor.cache)} "
+                  f"subgraphs to {cache_file}")
     # output dim: Disjoint -> n_way; Shared -> total class count
     # (train.py:58-61)
     labels_num = cfg.n_way if cfg.task_setup == "Disjoint" else data.total_class

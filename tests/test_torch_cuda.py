@@ -1,5 +1,6 @@
-"""The CUDA kernel of gmeta_tpu_torch against its plain version, and the
-pool modes' device decode, pinned window copies and fits, on the card.
+"""The CUDA kernel of gmeta_tpu_torch against its plain version, the pool
+modes' device decode, pinned window copies and fits, the device extractor
+and a remat train step, on the card.
 Marked `cuda`: they skip where there is no CUDA device (the kernel has no
 CPU mode; the CPU tests hold the plain version against the JAX package).
 This file imports neither jax nor the JAX package, so it also runs where
@@ -13,6 +14,8 @@ import pytest
 import torch
 
 from gmeta_tpu_torch.config import Config, build_model_config
+from gmeta_tpu_torch.data.device_extract import DeviceExtractor
+from gmeta_tpu_torch.data.graph import synthetic_store
 from gmeta_tpu_torch.data.synthetic import synthetic_disjoint
 from gmeta_tpu_torch.meta.maml import MetaLearner, take_tasks
 from gmeta_tpu_torch.ops import sized_spmm
@@ -209,3 +212,45 @@ def test_pinned_host_window_fit_equals_compact_fit(cuda):
     for a, b in zip(compact.learner.params, host.learner.params):
         assert torch.equal(a, b)
     assert r_h == r_c and r_h.global_step == 6
+
+
+# ---- device extractor and remat on the card --------------------------------
+
+def test_device_extractor_on_cuda_equals_cpu_uncapped(cuda):
+    store, _ = synthetic_store(1, 600, 8, 4, 3, seed=5)
+    g = store.graphs[0]
+    kw = dict(h=2, sample_nodes=g.num_nodes, set_cap=4096, hop_budget=16384,
+              edge_budget=16384, edge_out=8192, chunk=64)
+    centers = np.arange(0, g.num_nodes, 3)
+    got = DeviceExtractor(g, device=cuda, **kw).extract_arrays(centers)
+    assert got.parents.is_cuda
+    want = DeviceExtractor(g, device="cpu", **kw).extract_arrays(centers)
+    assert not bool(got.overflow.any())
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("first_order", [True, False])
+def test_remat_train_step_equals_plain_on_cuda(cuda, first_order):
+    store, ds = _tiny()
+    batch = next(ds["train"].batches(4, shuffle=False))
+    runs = []
+    for remat in (False, True):
+        ml = MetaLearner(build_model_config(Config(hidden_dim=16),
+                                            store.feat_dim, 3), 3,
+                         update_lr=0.05, meta_lr=1e-3, update_step=3,
+                         update_step_test=2, seed=5, agg="sized",
+                         first_order=first_order, remat=remat, device=cuda)
+        ml.set_features(store.features)
+        before = dict(sized_spmm.launches)
+        m = ml.train_step(batch)
+        torch.cuda.synchronize()
+        runs.append((m, ml.params, {k: sized_spmm.launches[k] - before[k]
+                                    for k in before}))
+    (m0, p0, n0), (m1, p1, n1) = runs
+    # recomputation launches the forward kernel again
+    assert n1["fwd"] > n0["fwd"] > 0 and n1["bwd"] >= n0["bwd"] > 0
+    torch.testing.assert_close(m1["meta_loss"], m0["meta_loss"], rtol=1e-6,
+                               atol=0)
+    for a, b in zip(p1[:-1], p0[:-1]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)

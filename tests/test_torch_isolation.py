@@ -1,7 +1,8 @@
 """The port stands alone: neither gmeta_tpu_torch nor its GPU scripts
 (chip_smoke.py, sweep_sized_spmm.py) import jax, optax or the JAX package,
-and neither a port train step nor resuming from a checkpoint the JAX
-package wrote loads them."""
+and neither a port train step, resuming from a checkpoint the JAX package
+wrote, nor building datasets with the port's C++ engine loads them (nor
+the JAX package's engine library)."""
 
 import ast
 import os
@@ -100,3 +101,46 @@ def test_resume_of_a_jax_checkpoint_loads_no_jax(tmp_path):
         params=params, opt_state=opt, best_params=params, max_acc=0.4,
         epoch=1, batch_in_epoch=-1, step=9))
     _run(RESUME.replace("sys.argv[1]", repr(str(tmp_path))))
+
+
+NATIVE = """
+import sys
+from pathlib import Path
+import numpy as np
+from gmeta_tpu_torch.config import Config
+from gmeta_tpu_torch.data import native
+from gmeta_tpu_torch.data.graph import synthetic_store
+from gmeta_tpu_torch.data.prepare import prepare_node_disjoint
+from gmeta_tpu_torch.ops import cuda_build
+from gmeta_tpu_torch.run.train import build_datasets
+store, labels = synthetic_store(num_graphs=2, nodes_per_graph=150,
+                                avg_degree=6, feat_dim=8, num_classes=9,
+                                seed=0)
+feats = [store.features[store.node_offsets[g]:store.node_offsets[g + 1]]
+         for g in range(2)]
+prepare_node_disjoint(sys.argv[1], store.graphs, feats, labels,
+                      num_label_set=3)
+_, ds, _ = build_datasets(Config(data_dir=sys.argv[1], n_way=3, k_spt=2,
+                                 k_qry=3, sample_nodes=40, batchsz=8,
+                                 eval_batchsz=4, extractor="native"))
+assert isinstance(ds["train"].extractor, native.NativeSubgraphExtractor)
+lib = Path(native._lib()._name).resolve()
+assert lib.parent == cuda_build.BUILD_DIR.resolve(), lib
+assert lib.name.startswith("extract-"), lib
+maps = open("/proc/self/maps").read()
+assert str(lib) in maps and "_native_extract" not in maps
+loaded = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "optax", "gmeta_tpu"))
+print("LOADED", loaded)
+"""
+
+
+def test_native_build_datasets_loads_no_jax(tmp_path):
+    """build_datasets(extractor="native") runs the port's own engine, built
+    under build/gmeta_tpu_torch/, and loads neither jax nor gmeta_tpu nor
+    gmeta_tpu/data/_native_extract.so."""
+    from gmeta_tpu_torch.data import native
+    if not native.available():
+        import pytest
+        pytest.skip("g++ is absent: the port's native engine cannot be built")
+    _run(NATIVE.replace("sys.argv[1]", repr(str(tmp_path / "ds"))))

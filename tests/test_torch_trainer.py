@@ -1,6 +1,6 @@
 """The port's trainer (gmeta_tpu_torch.run.train) against the JAX package's
 Trainer on the tiny data of tests/test_trainer.py, plus the entry points'
-device rule and the options that are not ported yet."""
+device rule and the CLI options that are not ported yet."""
 
 import dataclasses
 import json
@@ -16,6 +16,7 @@ from gmeta_tpu.data.synthetic import synthetic_disjoint as j_synthetic
 from gmeta_tpu.run.train import Trainer as JTrainer
 from gmeta_tpu_torch.config import Config
 from gmeta_tpu_torch.convert import params_from_jax
+from gmeta_tpu_torch.data import native
 from gmeta_tpu_torch.data.synthetic import synthetic_disjoint
 from gmeta_tpu_torch.run import train as train_mod
 from gmeta_tpu_torch.run.train import Trainer
@@ -83,12 +84,18 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
         train_mod.main(["--data_dir", "unused"])
 
 
-@pytest.mark.parametrize("override", [dict(remat_inner=True)])
+@pytest.mark.parametrize("override", [dict(mesh_tasks=2),
+                                      dict(mesh_edges=2)])
 def test_unported_options_raise(override):
-    store, ds = synthetic_disjoint(**DATA)
+    """Only --mesh_tasks and --mesh_edges are left; every Config option,
+    remat_inner and the native extractor included, is taken."""
+    (flag, value), = override.items()
     with pytest.raises(NotImplementedError, match="not ported"):
-        Trainer(dataclasses.replace(Config(**CFG), **override), store, ds,
-                labels_num=3, device="cpu")
+        train_mod.main(["--data_dir=unused", f"--{flag}={value}",
+                        "--device=cpu"])
+    store, ds = synthetic_disjoint(**DATA)
+    Trainer(dataclasses.replace(Config(**CFG), remat_inner=True), store, ds,
+            labels_num=3, device="cpu")
 
 
 def test_cli_builds_datasets_like_jax_and_trains(tmp_path, capsys):
@@ -119,13 +126,17 @@ def test_cli_builds_datasets_like_jax_and_trains(tmp_path, capsys):
             np.testing.assert_array_equal(a, b)
     capsys.readouterr()
     argv = [f"--{k}={v}" for k, v in flags.items()]
-    res = train_mod.main(argv + ["--hidden_dim=8", "--epoch=1",
-                                 "--task_num=4", "--update_step=2",
-                                 "--update_step_test=2", "--extractor=auto",
-                                 "--agg=sized", "--device=cpu"])
-    assert "extractor: numpy (requested 'auto')" in capsys.readouterr().out
+    fit = ["--hidden_dim=8", "--epoch=1", "--task_num=4", "--update_step=2",
+           "--update_step_test=2", "--agg=sized", "--device=cpu"]
+    res = train_mod.main(argv + fit + ["--extractor=auto"])
+    engine = "native C++" if native.available() else "numpy"
+    assert f"extractor: {engine} (requested 'auto')" in \
+        capsys.readouterr().out
     assert res.global_step == 2 and 0.0 <= res.test_acc_final <= 1.0
-    with pytest.raises(NotImplementedError, match="native"):
-        train_mod.main(argv + ["--extractor=native", "--device=cpu"])
+    if native.available():
+        res = train_mod.main(argv + fit + ["--extractor=native"])
+        assert "extractor: native C++ (requested 'native')" in \
+            capsys.readouterr().out
+        assert res.global_step == 2
     with pytest.raises(NotImplementedError, match="mesh"):
         train_mod.main(argv + ["--mesh_tasks=2", "--device=cpu"])
