@@ -67,13 +67,41 @@ Phases; any failure raises and the script exits non-zero:
                 set to 0 before each), theta equal (bitwise or rtol 1e-6),
                 peak device memory and warm tasks/s of each; (e) isolated
                 second-order meta-steps at arxiv width (task_vmap_chunk 8),
-                remat on and off in turns, seconds and peak memory.
+                remat on and off in turns, seconds and peak memory. The
+                prepared directory stays for phase 10 and is removed after.
+  10. mesh    — multi-rank training from phase 9's directory. (a) main()
+                with --mesh_tasks 1 and 9(d)'s flags, a world of one on
+                NCCL in this process: both packed kernels launch, theta
+                equals 9(d)'s plain fit (bitwise or rtol 1e-6), warm tasks/s
+                beside 9(d)'s. (b) main() with --mesh_edges 1 at the arxiv
+                preset's widths and depth, tasks cut (batchsz 96, eval 32):
+                the edge-partitioned engine on a world of one (NCCL), its
+                step seconds, warm tasks/s, peak memory, csr_gather launches
+                per direction, communication plan and one profiled
+                meta-step (device time by kernel); then the rectangular
+                entry point `csr_gather` timed on that engine's CSR pair
+                (the whole graph, both directions, H = 128 and 256, float32)
+                like phase 5, against torch.sparse.mm of the same CSR and
+                its bound. (c) ranks sharing this card over gloo, each a
+                process of its own (parallel/launch.py, this script with
+                --rank): --mesh_tasks 4 on the packed path (theta equal to
+                (a)), and --mesh_tasks 2 --mesh_edges 2 on the edge engine
+                with the depth cut (task_num 4, update_step 2,
+                update_step_test 2) against an in-process world of one of
+                the same flags; rtol 1e-5, atol 1e-5, the head bias
+                bounded; every rank launches its kernels and holds the same
+                theta; the seconds each rank spent in the halo all-to-all
+                and the all-reduces. Gloo between ranks of one card is no
+                measure of scaling across cards.
 
 Phase 2 builds the CUDA kernel (nvcc) and the host extraction engine (g++)
-at once. Prints the kernels' JSON line, the slice's JSON line (with the
-modes' warm tasks/s, data_s and peak device memory under "modes" and phase
-9's numbers under "cli"), the card's name and power limit, and last
-{"ok": true, "device": {...}}. Imports nothing of JAX or the JAX package.
+at once. Prints the kernels' JSON line (the packed kernel's launches summed
+over phases 7-10 and every rank, the rectangular entry point's over phase
+10), the slice's JSON line (with the modes' warm tasks/s, data_s and peak
+device memory under "modes", phase 9's numbers under "cli" and phase 10's
+under "mesh"), the card's name and power limit, and last
+{"ok": true, "device": {...}}. Imports nothing of JAX or the JAX package,
+and neither do its rank processes.
 """
 
 from __future__ import annotations
@@ -86,6 +114,7 @@ import os
 import shutil
 import statistics
 import subprocess
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -130,6 +159,23 @@ def cuda_ms(fn, iters=20, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def timed_row(kernel, plain, library, nnz, H, read_rows, n_out):
+    """Median ms of a gather kernel, its plain version and one library call
+    computing the same, beside the least time the card could take for
+    this data: the edges' 2 x nnz x H operations, or the table rows they
+    name and the int32 CSR read once and the whole (n_out, H) float32
+    output written once, whichever is longer."""
+    ms = cuda_ms(kernel)
+    t_ops = 2.0 * nnz * H / FP32_PEAK
+    nbytes = 4.0 * (read_rows * H + n_out * H) + 4.0 * (n_out + 1 + nnz)
+    t_bytes = nbytes / HBM_BYTES_S
+    return dict(ms=ms, plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_gb=nbytes / 1e9, x_rows_read=read_rows,
+                gb_per_s=nbytes / (ms * 1e-3) / 1e9)
 
 
 def packed_graph(P, sizes, device, seed, density=0.03):
@@ -284,30 +330,20 @@ def time_kernels(batch, device):
                 torch.sparse.mm(sparse, x.view(N, H)).view(S, P, H), want,
                 rtol=rtol, atol=atol)
             del got, want
-            ms = cuda_ms(lambda: sp.launch(direction, graph, x))
-            plain_ms = cuda_ms(lambda: sp.sized_plain(row_ptr, col, x))
-            library_ms = cuda_ms(lambda: torch.sparse.mm(sparse,
-                                                         x.view(N, H)))
-            dense_bmm_ms = cuda_ms(lambda: torch.bmm(At, x))
-            # what this data needs: the edges' products; the x rows they
-            # name and the indices read once, the whole output written once
-            flops = 2.0 * nnz * H
-            nbytes = 4.0 * (read_rows * H + N * H) + 4.0 * (N + 1 + nnz)
-            t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_BYTES_S
-            row = rows[(direction, H)] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                dense_bmm_ms=dense_bmm_ms,
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                max_abs_err=e, bound_gb=nbytes / 1e9, x_rows_read=read_rows,
-                gb_per_s=nbytes / (ms * 1e-3) / 1e9)
-            log(f"  {direction} H={H}: kernel {ms:.3f} ms "
+            row = rows[(direction, H)] = dict(timed_row(
+                lambda: sp.launch(direction, graph, x),
+                lambda: sp.sized_plain(row_ptr, col, x),
+                lambda: torch.sparse.mm(sparse, x.view(N, H)),
+                nnz, H, read_rows, N), max_abs_err=e,
+                dense_bmm_ms=cuda_ms(lambda: torch.bmm(At, x)))
+            log(f"  {direction} H={H}: kernel {row['ms']:.3f} ms "
                 f"({row['gb_per_s']:.0f} GB/s of the bound's "
-                f"{nbytes / 1e9:.3f} GB; {100 * row['bound_ms'] / ms:.1f}% "
-                f"of the bound), plain {plain_ms:.3f} ms, torch.sparse.mm "
-                f"{library_ms:.3f} ms, torch.bmm {dense_bmm_ms:.3f} ms, "
-                f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
-                f"max abs err {e:.3g}")
+                f"{row['bound_gb']:.3f} GB; "
+                f"{100 * row['bound_ms'] / row['ms']:.1f}% of the bound), "
+                f"plain {row['plain_ms']:.3f} ms, torch.sparse.mm "
+                f"{row['library_ms']:.3f} ms, torch.bmm "
+                f"{row['dense_bmm_ms']:.3f} ms, bound {row['bound_ms']:.3f} "
+                f"ms ({row['bound_by']}), max abs err {e:.3g}")
             del x
         del sparse
     del A
@@ -377,18 +413,19 @@ def dense_learner(trainer, store):
     return ml
 
 
-def profile_step(learner, batch, top=12):
-    """Device time by kernel over one meta-step under torch.profiler, and
-    the device's busy share of the step's wall time (profiler on, so the
-    host side is slower than unprofiled). Returns None, and says so, where
-    the profiler records no device time."""
+def profile_step(step, top=12):
+    """Device time by kernel over one meta-step (`step()` returns its loss
+    on the device) under torch.profiler, and the device's busy share of the
+    step's wall time (profiler on, so the host side is slower than
+    unprofiled). Returns None, and says so, where the profiler records no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        learner.train_step(batch)["meta_loss"].item()
+        step().item()
         wall_us = (time.time() - t0) * 1e6
     kernels = {}
     for e in prof.key_averages():
@@ -408,6 +445,16 @@ def profile_step(learner, batch, top=12):
         log(f"    {us / 1e3:9.2f} ms {100 * us / busy:5.1f}%  {k[:90]}")
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
             "top": [[k[:90], us / 1e3] for k, us in rows]}
+
+
+def fresh_card():
+    """Collect earlier fits' trainers (the spies make cycles), release the
+    card's cached memory and restart its peak count."""
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def kept_metrics():
@@ -467,10 +514,7 @@ def run_mode(cfg, store, ds, mode, kill_after_windows=0):
             return orig(idx_mat)
         trainer.learner.train_steps_from_compact = killing
     start = (trainer.start_epoch, trainer.start_batch, trainer.global_step)
-    gc.collect()            # earlier fits' trainers (the spies make cycles)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_card()
     for k in sp.launches:
         sp.launches[k] = 0
     t0 = time.time()
@@ -766,46 +810,65 @@ def device_extract_check(store, ds, cfg, device):
             "by_chunk": runs}
 
 
-def cli_fit(remat, metrics_path, device):
+def spy_main(argv):
+    """train.main(argv) and the trainer it built (Trainer, or
+    EdgePartTrainer under --mesh_edges)."""
+    from gmeta_tpu_torch.run import edgepart, train as train_mod
+    seen = []
+    originals = (train_mod.Trainer, edgepart.EdgePartTrainer)
+
+    def spy(cls):
+        class Seen(cls):
+            def fit(self):
+                seen.append(self)
+                return super().fit()
+        return Seen
+    train_mod.Trainer = spy(originals[0])
+    edgepart.EdgePartTrainer = spy(originals[1])
+    try:
+        result = train_mod.main(argv)
+    finally:
+        train_mod.Trainer, edgepart.EdgePartTrainer = originals
+    trainer, = seen
+    return result, trainer
+
+
+def zero_counts():
+    """Every kernel launch count (both entry points) and the collectives'
+    seconds and calls, set to 0."""
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    from gmeta_tpu_torch.parallel import collectives
+    for counts in (sp.launches, sp.csr_launches, collectives.seconds,
+                   collectives.calls):
+        for k in counts:
+            counts[k] = 0
+
+
+def cli_fit(remat, metrics_path, device, extra=()):
     """9d: one main() run from the prepared directory on the card, with the
-    Trainer it built. Returns its numbers."""
+    Trainer it built. Returns its numbers. `extra` adds flags (phase 10a:
+    --mesh_tasks 1)."""
     import torch
     from gmeta_tpu_torch.ops import sized_spmm as sp
-    from gmeta_tpu_torch.run import train as train_mod
-    seen = []
-
-    class Seen(train_mod.Trainer):
-        def fit(self):
-            seen.append(self)
-            return super().fit()
-
     argv = ["--preset", "arxiv", "--data_dir", str(DATA_DIR), "--agg",
             "sized", "--extractor", "native", "--batchsz", "192",
             "--eval_batchsz", "48", "--epoch", "1", "--dtype", "float32",
             "--train_result_report_steps", "1", "--remat_inner",
-            str(remat), "--metrics_path", str(metrics_path)]
+            str(remat), "--metrics_path", str(metrics_path), *extra]
     if metrics_path.exists():
         metrics_path.unlink()
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    for k in sp.launches:
-        sp.launches[k] = 0
-    orig, train_mod.Trainer = train_mod.Trainer, Seen
+    fresh_card()
+    zero_counts()
     t0 = time.time()
-    try:
-        result = train_mod.main(argv)
-    finally:
-        train_mod.Trainer = orig
+    result, trainer = spy_main(argv)
     torch.cuda.synchronize()
     out = {"remat": remat, "main_s": time.time() - t0,
            "launches": dict(sp.launches),
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "result": dataclasses.asdict(result)}
-    trainer, = seen
     assert trainer.device.type == device.type and trainer.agg == "sized"
     assert trainer.cfg.remat_inner == remat
+    assert not any(sp.csr_launches.values()), sp.csr_launches
     out["theta"] = [p.detach().cpu().numpy() for p in trainer.learner.params]
     recs = [json.loads(line) for line in open(metrics_path)]
     steps = [r for r in recs if r["kind"] == "train_step"]
@@ -816,10 +879,10 @@ def cli_fit(remat, metrics_path, device):
     out["warm_tasks_per_s"] = 5 * trainer.cfg.task_num / sum(
         trainer.cfg.task_num / r["tasks_per_s"] for r in steps[1:])
     assert out["launches"]["fwd"] > 0 and out["launches"]["bwd"] > 0, out
-    log(f"  main remat_inner={remat}: {out['main_s']:.1f} s, warm "
-        f"{out['warm_tasks_per_s']:.2f} tasks/s, peak {out['peak_gb']:.2f} "
-        f"GB, launches {out['launches']}")
-    del trainer, seen
+    log(f"  main remat_inner={remat}{' ' + ' '.join(extra) if extra else ''}"
+        f": {out['main_s']:.1f} s, warm {out['warm_tasks_per_s']:.2f} "
+        f"tasks/s, peak {out['peak_gb']:.2f} GB, launches {out['launches']}")
+    del trainer
     return out
 
 
@@ -842,10 +905,7 @@ def second_order_steps(store, ds, cfg, device, chunk=8):
                          first_order=False, remat=remat, seed=cfg.seed,
                          agg="sized", task_chunk=chunk, device=device)
         ml.set_features(store.features)
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        fresh_card()
         before = dict(sp.launches)
         seconds = step_seconds(ml, batch)
         for k in launches:
@@ -869,8 +929,8 @@ def second_order_steps(store, ds, cfg, device, chunk=8):
 
 
 def cli_phase(store4, ds4, device):
-    """Phase 9. Returns (summary, launches summed over its fits and
-    steps)."""
+    """Phase 9. Returns (summary, launches summed over its fits and steps,
+    the first plain fit). The prepared directory stays for phase 10."""
     import numpy as np
     from gmeta_tpu_torch.config import PRESETS
     t0 = time.time()
@@ -910,8 +970,324 @@ def cli_phase(store4, ds4, device):
             k: [r[k] for r in rs] for k in
             ("main_s", "warm_tasks_per_s", "tasks_per_s", "peak_gb",
              "launches")}
-    shutil.rmtree(data_dir, ignore_errors=True)
-    return summary, launches
+    return summary, launches, fits[False][0]
+
+
+# ---- phase 10: the mesh: task-DP and the edge-partitioned engine ----------
+
+EDGE_FLAGS = ["--preset", "arxiv", "--data_dir", str(DATA_DIR),
+              "--epoch", "1", "--train_result_report_steps", "1"]
+# (b): the arxiv preset's widths and depth, the tasks cut
+EDGE_FULL = EDGE_FLAGS + ["--batchsz", "96", "--eval_batchsz", "32"]
+# (c): the same widths, the depth cut
+EDGE_CUT = EDGE_FLAGS + ["--batchsz", "8", "--eval_batchsz", "4",
+                         "--task_num", "4", "--update_step", "2",
+                         "--update_step_test", "2"]
+SHARED_CARD = ["--dist_backend", "gloo", "--device", "cuda:0"]
+
+
+def edge_fit(argv, metrics_path, device):
+    """One main() of the edge-partitioned engine in this process (a world
+    of one, NCCL on the card), with its launch counts set to 0 before it.
+    Returns (its numbers, the trainer)."""
+    import torch
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    if metrics_path.exists():
+        metrics_path.unlink()
+    fresh_card()
+    zero_counts()
+    t0 = time.time()
+    result, trainer = spy_main(argv + ["--mesh_edges", "1", "--metrics_path",
+                                       str(metrics_path)])
+    torch.cuda.synchronize()
+    out = {"main_s": time.time() - t0, "csr_launches": dict(sp.csr_launches),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "result": dataclasses.asdict(result), "comm": trainer.comm,
+           "theta": [p.detach().cpu().numpy() for p in trainer.engine.params]}
+    assert trainer.engine.device.type == device.type
+    assert not any(sp.launches.values()), sp.launches
+    assert all(v > 0 for v in out["csr_launches"].values()), out
+    recs = [json.loads(line) for line in open(metrics_path)]
+    steps = [r for r in recs if r["kind"] == "train_step"]
+    task_num = trainer.cfg.task_num
+    assert len(steps) == result.global_step > 0, steps
+    for r in steps:
+        assert math.isfinite(r["meta_loss"]) and r["nan_skip"] == 0, r
+    out["step_s"] = [task_num / r["tasks_per_s"] for r in steps]
+    if len(steps) > 1:
+        out["warm_tasks_per_s"] = (len(steps) - 1) * task_num / sum(
+            out["step_s"][1:])
+    for f in ("test_acc_final", "best_test_acc", "val_max_acc"):
+        assert 0.0 <= getattr(result, f) <= 1.0, result
+    return out, trainer
+
+
+def time_rect(pair, device):
+    """The rectangular entry point at the full-graph shape: the edge
+    engine's CSR pair (both directions), H = 128 and 256, float32: kernel,
+    plain version and torch.sparse.mm of the same CSR, medians of CUDA-event
+    times, beside the least time the card could take for this data (the
+    table rows the edges name and the int32 indices read once, the output
+    written once; or 2 x nnz x H operations)."""
+    import torch
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    rows = {}
+    g = torch.Generator(device=device).manual_seed(1)
+    n_dst, n_src = pair.row_ptr.numel() - 1, pair.row_ptr_t.numel() - 1
+    nnz = pair.col.numel()
+    for count, (row_ptr, col), n_out, n_in in (
+            ("fwd", (pair.row_ptr, pair.col), n_dst, n_src),
+            ("bwd", (pair.row_ptr_t, pair.col_t), n_src, n_dst)):
+        read_rows = torch.unique(col).numel()
+        sparse = torch.sparse_csr_tensor(
+            row_ptr, col, torch.ones(nnz, device=device),
+            size=(n_out, n_in), check_invariants=False)
+        for H in (128, 256):
+            x = torch.randn(n_in, H, device=device, generator=g)
+            got = sp.csr_gather(row_ptr, col, x, count)
+            want = sp.csr_plain(row_ptr, col, x)
+            rtol, atol = TOLS["float32"]
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+            torch.testing.assert_close(torch.sparse.mm(sparse, x), want,
+                                       rtol=rtol, atol=atol)
+            e = (got - want).abs().max().item()
+            del got, want
+            row = rows[(count, H)] = dict(timed_row(
+                lambda: sp.csr_gather(row_ptr, col, x, count),
+                lambda: sp.csr_plain(row_ptr, col, x),
+                lambda: torch.sparse.mm(sparse, x),
+                nnz, H, read_rows, n_out), max_abs_err=e)
+            # the rows the kernel gathers, each edge's once
+            row["edge_gb_per_s"] = 4.0 * nnz * H / (row["ms"] * 1e-3) / 1e9
+            log(f"  csr_gather {count} H={H}: kernel {row['ms']:.3f} ms "
+                f"({100 * row['bound_ms'] / row['ms']:.1f}% of the bound; "
+                f"rows gathered at {row['edge_gb_per_s']:.0f} GB/s), plain "
+                f"{row['plain_ms']:.3f} ms, torch.sparse.mm "
+                f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}), max abs err {e:.3g}")
+            del x
+        del sparse
+    torch.cuda.empty_cache()
+    return rows, f"V={n_dst} nnz={nnz}"
+
+
+def rank_main(out_path, argv):
+    """One rank of phase 10(c), started by spawn_ranks: main(argv) with the
+    counts set to 0 before it. Writes this rank's theta, kernel launch
+    counts, collective seconds and, for the edge engine, its communication
+    plan to out_path (npz)."""
+    import numpy as np
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    from gmeta_tpu_torch.parallel import collectives
+    zero_counts()
+    t0 = time.time()
+    result, trainer = spy_main(argv)
+    engine = getattr(trainer, "engine", None)
+    params = engine.params if engine is not None else trainer.learner.params
+    meta = {"rank": int(os.environ["RANK"]), "main_s": time.time() - t0,
+            "launches": dict(sp.launches),
+            "csr_launches": dict(sp.csr_launches),
+            "seconds": dict(collectives.seconds),
+            "calls": dict(collectives.calls),
+            "global_step": result.global_step,
+            "comm": getattr(trainer, "comm", None)}
+    np.savez(out_path, meta=json.dumps(meta),
+             **{f"theta{i}": p.detach().cpu().numpy()
+                for i, p in enumerate(params)})
+
+
+def spawn_fit(argv, nprocs, tag):
+    """Phase 10(c): main(argv) as `nprocs` ranks sharing this card over
+    gloo, each in its own process. Returns each rank's (meta, theta) and
+    the wall seconds."""
+    import numpy as np
+    from gmeta_tpu_torch.parallel.launch import spawn_ranks
+    root = Path(__file__).resolve().parent
+    out_dir = root / "build" / "chip_smoke_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(root), OMP_NUM_THREADS="2")
+    fresh_card()
+    t0 = time.time()
+    spawn_ranks([sys.executable, str(root / "chip_smoke.py"), "--rank",
+                 str(out_dir / f"{tag}_rank"), *argv], nprocs, timeout=420,
+                env=env, cwd=str(root))
+    wall = time.time() - t0
+    ranks = []
+    for r in range(nprocs):
+        z = np.load(out_dir / f"{tag}_rank_{r}.npz")
+        n = sum(1 for k in z.files if k.startswith("theta"))
+        ranks.append((json.loads(str(z["meta"])),
+                      [z[f"theta{i}"] for i in range(n)]))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for meta, theta in ranks:            # one theta on every rank
+        for a, b in zip(theta, ranks[0][1]):
+            assert np.array_equal(a, b), meta["rank"]
+    return ranks, wall
+
+
+CKPT10 = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt10"
+
+
+def every_step(ckpt_dir):
+    """Flags that checkpoint theta after every meta-step into ckpt_dir."""
+    return ["--checkpoint_dir", str(ckpt_dir), "--checkpoint_every_steps",
+            "1"]
+
+
+def compare_steps(got_dir, want_dir, meta_lr, what, grad_atol=1e-5):
+    """Two checkpointed fits (rank 0's files for a mesh), step by step. The
+    first step's gradient (Adam's first moment after it, 0.1 x the
+    gradient) must equal the reference's at rtol 1e-5, atol `grad_atol` of
+    its largest entry: the same reduction, summed in another order. theta
+    cannot be held that tight: Adam scales every entry's update to about
+    meta_lr, so an entry whose gradient is near Adam's eps (1e-8), or
+    thousands of times below the largest entry, turns a summation-order
+    error into an update error of a fraction of meta_lr, which the next
+    steps carry on. theta after each step is held within
+    2 x step x meta_lr, Adam's own bound on how far two runs can move an
+    entry apart (the bound the head bias is held to everywhere). Returns
+    the step-1 gradient's largest difference over its largest entry, and
+    per step theta's (max abs, max rel without the head bias)."""
+    import numpy as np
+    from gmeta_tpu_torch.utils import checkpoint as ckpt
+
+    def by_step(d):
+        out = {}
+        for f in sorted(Path(d).glob("ckpt_*.pkl")):
+            state = ckpt.restore(str(f))
+            out[int(f.stem.split("_")[1])] = (
+                [np.asarray(x) for x in state["params"]],
+                [np.asarray(x) for x in state["opt_state"]["mu"]])
+        return out
+    got, want = by_step(got_dir), by_step(want_dir)
+    assert sorted(got) == sorted(want) and 1 in got, (sorted(got),
+                                                       sorted(want))
+    scale = max(float(np.abs(m).max()) for m in want[1][1])
+    for i, (x, y) in enumerate(zip(got[1][1], want[1][1])):
+        np.testing.assert_allclose(
+            x, y, rtol=1e-5, atol=grad_atol * scale,
+            err_msg=f"{what}: the first step's gradient of param {i}")
+    for step in sorted(got):
+        for x, y in zip(got[step][0], want[step][0]):
+            assert np.abs(x - y).max() <= 2 * step * meta_lr * 1.001, (
+                what, step)
+    return {"grad_step1": max(float(np.abs(x - y).max())
+                              for x, y in zip(got[1][1], want[1][1])) / scale,
+            "theta_by_step": [max_rel(got[k][0], want[k][0], skip_last=True)
+                              for k in sorted(got)]}
+
+
+def mesh_phase(device, plain9):
+    """Phase 10. Returns (summary, packed launches, rectangular launches,
+    the rectangular entry point's timing)."""
+    import torch
+    from gmeta_tpu_torch.parallel.edgepart_train import EdgePartTask
+    t0 = time.time()
+    packed = {"fwd": 0, "bwd": 0}
+    rect = {"fwd": 0, "bwd": 0}
+
+    shutil.rmtree(CKPT10, ignore_errors=True)
+
+    # (a) task-DP on a world of one (NCCL, in this process) = phase 9's fit;
+    # theta after every step is kept for (c)
+    a = cli_fit(False, DATA_DIR / "metrics_10a.jsonl", device,
+                extra=["--mesh_tasks", "1"] + every_step(CKPT10 / "a"))
+    for k in packed:
+        packed[k] += a["launches"][k]
+    a_diff = max_rel(a["theta"], plain9["theta"])
+    if a_diff[0] != 0.0:
+        assert_theta_close(a["theta"], plain9["theta"], 1e-6, 6, 1e-3,
+                           "10a vs phase 9")
+    log(f"  (a) --mesh_tasks 1: warm {a['warm_tasks_per_s']:.2f} tasks/s "
+        f"against phase 9's {plain9['warm_tasks_per_s']:.2f}; theta vs "
+        f"phase 9 (max abs, max rel) {a_diff}")
+
+    # (b) the edge-partitioned engine at full width on a world of one
+    b, trainer = edge_fit(EDGE_FULL, DATA_DIR / "metrics_10b.jsonl", device)
+    for k in rect:
+        rect[k] += b["csr_launches"][k]
+    log(f"  (b) --mesh_edges 1, arxiv widths: {b['main_s']:.1f} s, steps "
+        f"{[round(x, 3) for x in b['step_s']]} s, warm "
+        f"{b.get('warm_tasks_per_s', float('nan')):.2f} tasks/s, peak "
+        f"{b['peak_gb']:.2f} GB, csr_gather launches {b['csr_launches']}, "
+        f"comm {b['comm']}")
+    train = trainer.tasks["train"]
+    first = EdgePartTask(*(a[:trainer.cfg.task_num] for a in train))
+    b["profile"] = profile_step(
+        lambda: trainer.engine.train_step(first)["meta_loss"])
+    timing, shape = time_rect(trainer.engine._shard.local, device)
+    del trainer
+    fresh_card()
+
+    # (c) several ranks on this one card over gloo, each its own process
+    packed_argv = ["--preset", "arxiv", "--data_dir", str(DATA_DIR),
+                   "--agg", "sized", "--extractor", "native", "--batchsz",
+                   "192", "--eval_batchsz", "48", "--epoch", "1", "--dtype",
+                   "float32", "--update_step_test", "2", "--metrics_path",
+                   str(DATA_DIR / "metrics_10c.jsonl"), "--mesh_tasks", "4",
+                   *SHARED_CARD, *every_step(CKPT10 / "c")]
+    ranks, wall = spawn_fit(packed_argv, 4, "tasks")
+    for meta, _ in ranks:
+        assert meta["global_step"] == 6, meta
+        assert all(v > 0 for v in meta["launches"].values()), meta
+        for k in packed:
+            packed[k] += meta["launches"][k]
+    c_steps = compare_steps(CKPT10 / "c", CKPT10 / "a", 1e-3,
+                            "10c task-DP vs 10a")
+    log(f"  (c) --mesh_tasks 4, 4 gloo ranks: {wall:.1f} s; vs (a): {c_steps}"
+        f"; launches by rank "
+        f"{[m['launches'] for m, _ in ranks]}; all-reduce s by rank "
+        f"{[round(m['seconds']['all_reduce'], 3) for m, _ in ranks]}")
+    c_tasks = {"wall_s": wall, "vs_a": c_steps,
+               "ranks": [m for m, _ in ranks]}
+
+    one, _ = edge_fit(EDGE_CUT + every_step(CKPT10 / "e1"),
+                      DATA_DIR / "metrics_10c1.jsonl", device)
+    for k in rect:
+        rect[k] += one["csr_launches"][k]
+    ranks, wall = spawn_fit(EDGE_CUT + [
+        "--mesh_tasks", "2", "--mesh_edges", "2", "--metrics_path",
+        str(DATA_DIR / "metrics_10c2.jsonl"), *SHARED_CARD,
+        *every_step(CKPT10 / "e4")], 4, "edges")
+    for meta, _ in ranks:
+        assert meta["global_step"] == one["result"]["global_step"], meta
+        assert all(v > 0 for v in meta["csr_launches"].values()), meta
+        assert not any(meta["launches"].values()), meta
+        for k in rect:
+            rect[k] += meta["csr_launches"][k]
+    # splitting the graph changes more than the order of a sum: each row
+    # aggregates its local and remote edges apart, and the inner steps
+    # carry that on, so the JAX engine's own (2, 2) and (1, 1) steps part
+    # by more than a task split does; a wrong gradient rule (a factor of
+    # D, a shard's share lost) moves the gradient by a fraction of its
+    # largest entry, far beyond 1e-3 of it
+    e_steps = compare_steps(CKPT10 / "e4", CKPT10 / "e1", 1e-3,
+                            "10c (2, 2) vs world 1", grad_atol=1e-3)
+    shutil.rmtree(CKPT10, ignore_errors=True)
+    comm = ranks[0][0]["comm"]
+    log(f"  (c) --mesh_tasks 2 --mesh_edges 2, 4 gloo ranks: {wall:.1f} s "
+        f"(world 1: {one['main_s']:.1f} s); vs world 1: {e_steps}; comm "
+        f"{comm}; halo all-to-all s by rank "
+        f"{[round(m['seconds']['all_to_all'], 3) for m, _ in ranks]} over "
+        f"{ranks[0][0]['calls']['all_to_all']} exchanges each, all-reduce s "
+        f"{[round(m['seconds']['all_reduce'], 3) for m, _ in ranks]} over "
+        f"{ranks[0][0]['calls']['all_reduce']}"
+        f"; csr_gather launches by rank "
+        f"{[m['csr_launches'] for m, _ in ranks]}")
+    summary = {
+        "a": {k: a[k] for k in ("main_s", "warm_tasks_per_s", "tasks_per_s",
+                                "peak_gb", "launches")},
+        "a_theta_diff": a_diff,
+        "phase9_warm_tasks_per_s": plain9["warm_tasks_per_s"],
+        "b": {k: b[k] for k in b if k != "theta"},
+        "c_tasks": c_tasks,
+        "c_edges": {"wall_s": wall, "vs_world1": e_steps,
+                    "world1_s": one["main_s"],
+                    "ranks": [m for m, _ in ranks]},
+        "phase_s": time.time() - t0}
+    torch.cuda.empty_cache()
+    return summary, packed, rect, (timing, shape)
 
 
 def main():
@@ -1028,7 +1404,8 @@ def main():
     dense_s = statistics.mean(turns["dense"])
     log(f"  warm meta-step seconds in turns: {turns}; peak device memory "
         f"GB: {peaks}")
-    breakdown = profile_step(trainer.learner, batch)
+    breakdown = profile_step(
+        lambda: trainer.learner.train_step(batch)["meta_loss"])
     del dense
     t1 = time.time()
     curves = trainer.evaluate("test")
@@ -1051,9 +1428,18 @@ def main():
         f"{mode_launches}")
 
     t = phase("9 the CLI from disk: prepare, extract, remat")
-    cli, cli_launches = cli_phase(store, ds, device)
+    cli, cli_launches, plain9 = cli_phase(store, ds, device)
     log(f"  {time.time() - t:.1f} s; kernel launches of phase 9 "
         f"{cli_launches}")
+    del store, ds, tr_ds, batch
+    gc.collect()
+
+    t = phase("10 the mesh: task-DP and the edge-partitioned engine")
+    mesh, mesh_launches, rect_launches, (rect, rect_shape) = mesh_phase(
+        device, plain9)
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    log(f"  {time.time() - t:.1f} s; kernel launches of phase 10: packed "
+        f"{mesh_launches}, csr_gather {rect_launches}")
 
     kernels = []
     for direction, line in (("fwd", 39), ("bwd", 80)):
@@ -1064,10 +1450,12 @@ def main():
             "source": "gmeta_tpu_torch/csrc/sized_spmm.cu",
             "replaces": f"gmeta_tpu/ops/pallas_spmm.py:{line}",
             "launches": (main_path[direction] + mode_launches[direction]
-                         + cli_launches[direction]),
+                         + cli_launches[direction]
+                         + mesh_launches[direction]),
             "launches_by_phase": {"7": main_path[direction],
                                   "8": mode_launches[direction],
-                                  "9": cli_launches[direction]},
+                                  "9": cli_launches[direction],
+                                  "10": mesh_launches[direction]},
             "max_abs_err": max(errs[direction]["float32"],
                                head["max_abs_err"]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -1079,6 +1467,22 @@ def main():
             "launches_per_meta_step": per_step[direction],
             "by_H": {str(H): timing[(direction, H)] for H in (128, 256)},
         })
+    for direction in ("fwd", "bwd"):
+        head = rect[(direction, 256)]
+        kernels.append({
+            "name": f"csr_gather_{direction}",
+            "route": "cuda",
+            "source": "gmeta_tpu_torch/csrc/sized_spmm.cu",
+            # the edge engine's segment-sum, an XLA op in the JAX package
+            "replaces": "gmeta_tpu/parallel/edgepart_train.py:129",
+            "launches": rect_launches[direction],
+            "max_abs_err": head["max_abs_err"],
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "shape": f"{rect_shape} H=256 float32",
+            "by_H": {str(H): rect[(direction, H)] for H in (128, 256)},
+        })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"slice": {
         "fit_s": fit_s, "warm_step_s": step_s,
@@ -1088,7 +1492,7 @@ def main():
         "dense_step_s": dense_s, "step_s_turns": turns,
         "step_peak_gb": peaks, "profile": breakdown,
         "result": dataclasses.asdict(result), "modes": modes, "cli": cli,
-        "card": card}}))
+        "mesh": mesh, "card": card}}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -1096,4 +1500,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:      # one rank of phase 10(c)
+        rank_main(f"{sys.argv[2]}_{os.environ['RANK']}.npz", sys.argv[3:])
+    else:
+        main()

@@ -27,6 +27,13 @@ pool and window modes:
 - `task_chunk` > 0 runs the tasks in chunks; each chunk adds sum/T of its
   losses to the gradient, so the step equals the unchunked one while only
   one chunk's adjacencies and graphs are live.
+- `mesh` (parallel/mesh.py) is task data-parallelism, the JAX package's
+  `MetaLearner(mesh=)`: each rank runs its contiguous T/N of the step's T
+  tasks (parallel/dp.py), divides its part of the loss by the GLOBAL T, and
+  sums its gradients, loss and accuracy sums over the task group in one
+  all-reduce, which gives exactly the JAX mean; the NaN guard reads the
+  reduced loss, so every rank takes the same decision. Theta is drawn from
+  the seed on every rank and broadcast from rank 0 once.
 - the pool modes run K meta-steps per call over tasks that are already on
   the device: a resident pool (full or compact form) gathered by index, or
   a window of K meta-batches shipped as one int32 buffer in the JAX
@@ -48,6 +55,8 @@ from torch.utils.checkpoint import checkpoint
 from gmeta_tpu_torch.data.pack import SubgraphSet, TaskBatch
 from gmeta_tpu_torch.meta.protonet import proto_loss_qry, proto_loss_spt
 from gmeta_tpu_torch.models.gcn import GCN, forward, init_params, precompute
+from gmeta_tpu_torch.parallel.collectives import all_reduce_flat, broadcast_
+from gmeta_tpu_torch.parallel.dp import shard_batch
 from gmeta_tpu_torch.utils.device import resolve_device
 
 
@@ -263,7 +272,10 @@ class MetaLearner:
     """Owns theta (a GCN module), the Adam state and the train/eval steps.
 
     Runs on `device`: CUDA unless the caller names another; with no CUDA
-    device and no explicit device it raises."""
+    device and no explicit device it raises. With a `mesh`, train steps are
+    task data-parallel (see the module docstring) and `finetune_batch`
+    evaluates every task of its batch on every rank, as the JAX package's
+    unsharded finetune does: no collective, the same curves everywhere."""
 
     def __init__(self, layer_spec, proto_classes: int, *,
                  update_lr: float, meta_lr: float,
@@ -271,13 +283,18 @@ class MetaLearner:
                  first_order: bool = True, compute_dtype=torch.float32,
                  remat: bool = False, seed: int = 222,
                  track_curve: bool = True, agg: str = "dense",
-                 task_chunk: int = 0, device=None):
+                 task_chunk: int = 0, device=None, mesh=None):
+        if task_chunk and mesh is not None:
+            raise ValueError("task_chunk is incompatible with a task-DP mesh")
         self.device = resolve_device(device)
         self.layer_spec = layer_spec
         self.meta_lr = meta_lr
         self.task_chunk = task_chunk
+        self.mesh = mesh
         gen = torch.Generator().manual_seed(seed)
         self.model = GCN(init_params(gen, layer_spec)).to(self.device)
+        if mesh is not None:
+            broadcast_(self.params, mesh.world)
         self.opt_state = adam_init(self.params)
         self._train_inner = make_inner_loop(
             layer_spec, proto_classes, update_lr, update_step,
@@ -328,14 +345,16 @@ class MetaLearner:
     def train_step(self, batch: TaskBatch):
         """One meta-step on a batch of T tasks. Returns device tensors
         {"meta_loss", "accs" (update_step+1,), "nan_skip"} without waiting
-        for the device."""
-        batch = batch_to(batch, self.device)
+        for the device (with a mesh, the collectives may wait)."""
         T = batch.spt.node_gid.shape[0]
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
+        batch = batch_to(batch, self.device)
         params = self.params
         grads = [torch.zeros_like(p) for p in params]
         loss = torch.zeros((), device=self.device)
         accs = 0.0
-        for sl in self._chunks(T):
+        for sl in self._chunks(batch.spt.node_gid.shape[0]):
             losses, aux = self._train_inner(params, take_tasks(batch, sl),
                                             self._feats)
             part = losses.sum() / T
@@ -343,6 +362,9 @@ class MetaLearner:
                 acc.add_(g)
             loss = loss + part.detach()
             accs = accs + aux.qry_accs.sum(dim=0)
+        if self.mesh is not None:
+            *grads, loss, accs = all_reduce_flat(
+                grads + [loss, accs], self.mesh.task_group)
         # NaN skip guard (meta.py:163-169), counted not silent
         ok = torch.isfinite(loss)
         with torch.no_grad():

@@ -16,11 +16,19 @@ directions. The CSRs hold exactly the edges `densify` would add up, so on
 packed data, where no edge touches a dead row, both directions equal the
 full product with dead rows zero (the JAX `sized_reference`).
 
+The same kernel also has a rectangular entry point, `csr_gather`: out
+(len(row_ptr) - 1, H) gathered from a table x of any height, which the
+kernel allows because it bounds only the output rows and reads x through
+`col` alone. The edge-partitioned engine (parallel/edgepart_train.py) runs
+its segment-sums over sorted destinations through it, with the autograd
+pair `CsrAgg`/`CsrAggT` over a `CsrPair` (both CSRs of one edge set).
+
 Where each runs is decided by the tensor's device alone: a CPU tensor takes
-the plain PyTorch version (`sized_plain`), a CUDA tensor launches the kernel,
-and any other device raises. There is no fallback from the kernel to the
-plain version. `launches` counts kernel launches per direction, so a run can
-show that its main path went through the kernels.
+the plain PyTorch version (`sized_plain`, `csr_plain`), a CUDA tensor
+launches the kernel, and any other device raises. There is no fallback from
+the kernel to the plain version. `launches` counts the packed path's kernel
+launches per direction and `csr_launches` the rectangular entry point's, so
+a run can show which of its paths went through the kernel.
 """
 
 from __future__ import annotations
@@ -34,7 +42,8 @@ import torch
 from gmeta_tpu_torch.ops import cuda_build
 
 # Kernel launches per direction; only a CUDA launch adds to them.
-launches = {"fwd": 0, "bwd": 0}
+launches = {"fwd": 0, "bwd": 0}        # packed sets (launch)
+csr_launches = {"fwd": 0, "bwd": 0}    # rectangular tables (csr_gather)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROWS = 2**31 - 512   # int32 row indices, with a block's overhang
@@ -139,31 +148,160 @@ def _lib():
     return fn
 
 
-def launch(direction: str, graph: SizedGraph, x: torch.Tensor) -> torch.Tensor:
-    """Run one direction ("fwd" or "bwd") of the graph on x (S, P, H), on
-    x's device: the plain version on the CPU, the kernel on CUDA (counted in
-    `launches`)."""
-    row_ptr, col = graph.csr(direction)
+def _check_devices(row_ptr, col, x):
     if not (row_ptr.device == col.device == x.device):
         raise ValueError(f"graph on {row_ptr.device}/{col.device} but x on "
                          f"{x.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"sized_spmm runs on cpu or cuda, not {x.device}")
+
+
+def _run_kernel(row_ptr, col, x, out, n_rows: int, what: str):
+    """Launch the gather kernel for `n_rows` output rows of out on x's
+    device and current stream; raises if the launch was refused."""
+    H = x.shape[-1]
+    fn = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(row_ptr.data_ptr(), col.data_ptr(), x.data_ptr(),
+                 out.data_ptr(), n_rows, H, _DTYPE_CODE[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"sized_spmm {what} kernel launch failed "
+                           f"(CUDA error {err}) at N={n_rows} H={H} {x.dtype}")
+
+
+def launch(direction: str, graph: SizedGraph, x: torch.Tensor) -> torch.Tensor:
+    """Run one direction ("fwd" or "bwd") of the graph on x (S, P, H), on
+    x's device: the plain version on the CPU, the kernel on CUDA (counted in
+    `launches`)."""
+    row_ptr, col = graph.csr(direction)
+    _check_devices(row_ptr, col, x)
     _check(row_ptr, col, x)
     if x.device.type == "cpu":
         return sized_plain(row_ptr, col, x)
     S, P, H = x.shape
     out = torch.empty_like(x)
-    fn = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(row_ptr.data_ptr(), col.data_ptr(), x.data_ptr(),
-                 out.data_ptr(), S * P, H, _DTYPE_CODE[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"sized_spmm {direction} kernel launch failed "
-                           f"(CUDA error {err}) at N={S * P} H={H} {x.dtype}")
+    _run_kernel(row_ptr, col, x, out, S * P, direction)
     launches[direction] += 1
     return out
+
+
+# --- the rectangular entry point ---------------------------------------------
+
+def csr_plain(row_ptr: torch.Tensor, col: torch.Tensor,
+              x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `csr_gather`: out (N, H), N = len(row_ptr)
+    - 1, with out[r] = sum of x[col[e]] over e in [row_ptr[r],
+    row_ptr[r+1]), a gather and an index_add_ summed in float32, returned
+    in x's dtype. x may have any number of rows."""
+    N = row_ptr.shape[0] - 1
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    rows = torch.repeat_interleave(counts)        # each edge's output row
+    src = x[col[:rows.numel()].long()].float()
+    out = torch.zeros(N, x.shape[1], dtype=torch.float32, device=x.device)
+    return out.index_add_(0, rows, src).to(x.dtype)
+
+
+def _check_rect(row_ptr, col, x):
+    if x.dim() != 2 or row_ptr.dim() != 1 or col.dim() != 1:
+        raise ValueError(f"want x (rows,H), row_ptr (N+1,), col (nnz,); got "
+                         f"{tuple(x.shape)}, {tuple(row_ptr.shape)}, "
+                         f"{tuple(col.shape)}")
+    if row_ptr.shape[0] < 1:
+        raise ValueError("row_ptr needs at least one entry")
+    if max(row_ptr.shape[0] - 1, x.shape[0]) >= _MAX_ROWS:
+        raise ValueError(f"{row_ptr.shape[0] - 1} output or {x.shape[0]} "
+                         f"table rows exceed the kernel's int32 rows")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if row_ptr.dtype != torch.int32 or col.dtype != torch.int32:
+        raise TypeError(f"row_ptr and col must be int32, got "
+                        f"{row_ptr.dtype}, {col.dtype}")
+    if not (x.is_contiguous() and row_ptr.is_contiguous()
+            and col.is_contiguous()):
+        raise ValueError("x, row_ptr and col must be contiguous")
+
+
+def csr_gather(row_ptr: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
+               count: str = "fwd") -> torch.Tensor:
+    """out (len(row_ptr) - 1, H) = the CSR times the table x (rows, H), on
+    x's device: `csr_plain` on the CPU, the kernel on CUDA, counted in
+    `csr_launches[count]` ("fwd" or "bwd", the direction the caller runs).
+    Every col entry must lie in [0, rows): the kernel does not check it, so
+    `csr_pair` checks that on the host."""
+    _check_devices(row_ptr, col, x)
+    _check_rect(row_ptr, col, x)
+    if x.device.type == "cpu":
+        return csr_plain(row_ptr, col, x)
+    n_rows = row_ptr.shape[0] - 1
+    out = torch.empty((n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    _run_kernel(row_ptr, col, x, out, n_rows, f"csr_gather {count}")
+    csr_launches[count] += 1
+    return out
+
+
+class CsrPair(NamedTuple):
+    """One edge set as two CSRs: `row_ptr`/`col` keyed by destination
+    (n_dst rows, columns into a table of n_src rows) and `row_ptr_t`/`col_t`
+    keyed by source (n_src rows, columns into n_dst)."""
+    row_ptr: torch.Tensor    # (n_dst + 1,) int32
+    col: torch.Tensor        # (nnz,) int32 source rows, in edge order
+    row_ptr_t: torch.Tensor  # (n_src + 1,) int32
+    col_t: torch.Tensor      # (nnz,) int32 destination rows
+
+    def to(self, device) -> "CsrPair":
+        return CsrPair(*(t.to(device) for t in self))
+
+
+def csr_pair(src, dst, n_src: int, n_dst: int) -> CsrPair:
+    """Host: both CSRs of the edges (src[e] -> dst[e]) (numpy), as int32
+    CPU tensors. A stable sort keeps each row's edges in edge order. Raises
+    where an index lies outside its table, which the kernel does not
+    check."""
+    import numpy as np
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    for name, idx, n in (("src", src, n_src), ("dst", dst, n_dst)):
+        if idx.size and (idx.min() < 0 or idx.max() >= n):
+            raise ValueError(f"{name} indices outside [0, {n})")
+    if max(n_src, n_dst, src.size) >= _MAX_ROWS:
+        raise ValueError("the kernel's indices are int32")
+
+    def one(key, val, n):
+        order = np.argsort(key, kind="stable")
+        row_ptr = np.zeros(n + 1, np.int64)
+        np.cumsum(np.bincount(key, minlength=n), out=row_ptr[1:])
+        return (torch.from_numpy(row_ptr.astype(np.int32)),
+                torch.from_numpy(val[order].astype(np.int32)))
+    return CsrPair(*one(dst, src, n_dst), *one(src, dst, n_src))
+
+
+class CsrAgg(torch.autograd.Function):
+    """out (n_dst, H) = A @ x over the pair's destination CSR, x (n_src, H).
+    Its backward is CsrAggT, whose backward is CsrAgg, so grad-of-grad works
+    at any order."""
+
+    @staticmethod
+    def forward(ctx, pair, x):
+        ctx.pair = pair
+        return csr_gather(pair.row_ptr, pair.col, x.contiguous(), "fwd")
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, CsrAggT.apply(ctx.pair, g)
+
+
+class CsrAggT(torch.autograd.Function):
+    """out (n_src, H) = A^T @ g over the pair's source CSR."""
+
+    @staticmethod
+    def forward(ctx, pair, g):
+        ctx.pair = pair
+        return csr_gather(pair.row_ptr_t, pair.col_t, g.contiguous(), "bwd")
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, CsrAgg.apply(ctx.pair, g)
 
 
 class SizedAgg(torch.autograd.Function):

@@ -21,11 +21,26 @@ Reporting parity notes: the reference prints `accs[1]` as "Test acc"
 contaminated by the previous test loop (train.py:130-146). Both
 reference-style numbers are reported alongside the clean ones.
 
-Not ported yet, and rejected with NotImplementedError rather than ignored:
---mesh_tasks and --mesh_edges.
+Multi-device training is one process per rank (parallel/mesh.py):
+`--mesh_tasks T` is task data-parallelism over T ranks (meta/maml.py), and
+`--mesh_edges D` trains with the edge-partitioned full-graph engine
+(run/edgepart.py) over T x D ranks (T = max(--mesh_tasks, 1)):
+
+    torchrun --nproc_per_node R -m gmeta_tpu_torch.run.train \
+        --mesh_tasks T --mesh_edges D ...           # R = T x max(D, 1)
+
+`main` reads RANK, WORLD_SIZE, LOCAL_RANK (and LOCAL_WORLD_SIZE,
+MASTER_ADDR, MASTER_PORT) from the launcher; with none of them and a mesh
+of one rank it runs a world of one on an in-process store. Each rank runs
+on cuda:LOCAL_RANK unless --device names a device. --dist_backend is nccl
+on CUDA and gloo on the CPU by default; NCCL refuses ranks that share a
+card, so that raises, and ranks sharing one card meet over gloo only when
+--dist_backend gloo asks for it. Only rank 0 writes metrics and
+checkpoints, and every rank resumes from them.
 
 CLI: python -m gmeta_tpu_torch.run.train --preset arxiv --data_dir ...
-     [--device cuda|cpu] [overrides]
+     [--device cuda|cpu] [--mesh_tasks T] [--mesh_edges D]
+     [--dist_backend nccl|gloo] [overrides]
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ import os
 import queue
 import threading
 import time
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
@@ -46,6 +62,7 @@ from gmeta_tpu_torch.data.pack import TaskBatch
 from gmeta_tpu_torch.data.pipeline import MetaDataset
 from gmeta_tpu_torch.meta.maml import MetaLearner, take_tasks
 from gmeta_tpu_torch.models.gcn import count_params
+from gmeta_tpu_torch.parallel import mesh as mesh_mod
 from gmeta_tpu_torch.utils import checkpoint as ckpt
 from gmeta_tpu_torch.utils.device import resolve_device
 from gmeta_tpu_torch.utils.metrics import MetricLogger, StepTimer, rss_gb
@@ -61,17 +78,32 @@ class FitResult:
     global_step: int
 
 
+def rank_metrics(path: str, mesh) -> MetricLogger:
+    """The metric stream of this rank: rank 0 writes `path` and echoes,
+    every other rank of a mesh neither writes nor echoes."""
+    if mesh is None or mesh.rank == 0:
+        return MetricLogger(path)
+    return MetricLogger("", echo=False)
+
+
 class Trainer:
+    """The protocol over the packed-subgraph MetaLearner. With a `mesh`
+    (parallel/mesh.py) every rank runs it: steps are task data-parallel,
+    the meta-step is never chunked (task_vmap_chunk is forced to 0, as in
+    the JAX package), only rank 0 writes metrics and checkpoints, and every
+    rank restores."""
+
     def __init__(self, cfg: Config, store, datasets: Dict[str, MetaDataset],
                  labels_num: int, metrics: Optional[MetricLogger] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = cfg
         self.store = store
         self.datasets = datasets
         self.device = resolve_device(device)
+        self.mesh = mesh
         if cfg.debug_nans:
             torch.autograd.set_detect_anomaly(True)
-        self.metrics = metrics or MetricLogger(cfg.metrics_path)
+        self.metrics = metrics or rank_metrics(cfg.metrics_path, mesh)
         self.spec = build_model_config(cfg, store.feat_dim, labels_num)
         compute_dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                          else torch.float32)
@@ -86,8 +118,8 @@ class Trainer:
         self.buckets = dict(P_spt=tr.P_spt, B_spt=tr.B_spt, E_spt=tr.E_spt,
                             P_qry=tr.P_qry, B_qry=tr.B_qry, E_qry=tr.E_qry)
         # -1 (auto) runs all tasks at once: no preset has yet been shown to
-        # run out of device memory unchunked (PERF.md)
-        task_chunk = max(cfg.task_vmap_chunk, 0)
+        # run out of device memory unchunked (PERF.md); a mesh never chunks
+        task_chunk = 0 if mesh is not None else max(cfg.task_vmap_chunk, 0)
         if task_chunk:
             self.metrics.echo_line(f"meta-step chunked at {task_chunk} tasks")
         self.task_chunk = task_chunk
@@ -102,7 +134,7 @@ class Trainer:
             first_order=cfg.first_order, compute_dtype=compute_dtype,
             remat=cfg.remat_inner, seed=cfg.seed,
             track_curve=cfg.track_train_curve, agg=agg,
-            task_chunk=task_chunk, device=self.device)
+            task_chunk=task_chunk, device=self.device, mesh=mesh)
         self.learner.set_features(store.features)
         self.metrics.echo_line(
             f"Total trainable tensors: {count_params(self.learner.params)}")
@@ -153,16 +185,19 @@ class Trainer:
         place."""
         if not self.cfg.checkpoint_dir:
             return
-        ckpt.save(self.cfg.checkpoint_dir, self.global_step, {
-            "params": self.learner.params if params is None else params,
-            "opt_state": (self.learner.opt_state if opt_state is None
-                          else opt_state),
-            "best_params": self.best_params,
-            "max_acc": self.max_acc,
-            "epoch": epoch,
-            "batch_in_epoch": batch_in_epoch,
-            "step": self.global_step,
-        })
+        if self.mesh is None or self.mesh.rank == 0:
+            ckpt.save(self.cfg.checkpoint_dir, self.global_step, {
+                "params": self.learner.params if params is None else params,
+                "opt_state": (self.learner.opt_state if opt_state is None
+                              else opt_state),
+                "best_params": self.best_params,
+                "max_acc": self.max_acc,
+                "epoch": epoch,
+                "batch_in_epoch": batch_in_epoch,
+                "step": self.global_step,
+            })
+        if self.mesh is not None:
+            self.mesh.barrier()     # the file is whole before anyone goes on
 
     # ---- evaluation --------------------------------------------------------
 
@@ -268,8 +303,10 @@ class Trainer:
         return self._final_test(t_start)
 
     def _stop_trace(self, prof) -> None:
-        path = _stop_trace(prof, self.cfg.profile_dir, self.device,
-                           f"step{self.global_step:08d}")
+        name = f"step{self.global_step:08d}"
+        if self.mesh is not None:
+            name += f"_rank{self.mesh.rank}"
+        path = _stop_trace(prof, self.cfg.profile_dir, self.device, name)
         self.metrics.echo_line(f"profiler trace written to {path}")
 
     def _epoch_steps(self, epoch: int) -> np.ndarray:
@@ -698,9 +735,10 @@ def build_datasets(cfg: Config):
             known = len(np.load(cache_file, allow_pickle=False)["names"])
         if len(extractor.cache) > known:
             # drop only THIS parameterization's superseded caches; other
-            # (h, sample_nodes, cap) configs' caches stay valid
+            # (h, sample_nodes, cap) configs' caches stay valid; the ranks
+            # of a mesh build at once, so another may have removed one
             for stale in extract_cache.stale_paths(cfg.data_dir, cache_file):
-                os.remove(stale)
+                Path(stale).unlink(missing_ok=True)
             extract_cache.save(cache_file, extractor.cache)
             print(f"extraction cache: wrote {len(extractor.cache)} "
                   f"subgraphs to {cache_file}")
@@ -708,6 +746,42 @@ def build_datasets(cfg: Config):
     # (train.py:58-61)
     labels_num = cfg.n_way if cfg.task_setup == "Disjoint" else data.total_class
     return data.store, datasets, labels_num
+
+
+def rank_device(device_arg: Optional[str], backend_arg: Optional[str]):
+    """(device, backend) of this rank under the launch model of the module
+    docstring. Raises, before any process group exists, where a rank has no
+    card of its own and no --device, and where NCCL is asked for ranks
+    that share a device; gloo on CUDA runs only when asked for."""
+    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    if device_arg is not None:
+        device = resolve_device(device_arg)
+    else:
+        resolve_device(None)                  # raises without CUDA
+        n = torch.cuda.device_count()
+        if local_rank >= n:
+            raise RuntimeError(
+                f"LOCAL_RANK {local_rank} has no card of its own ({n} CUDA "
+                f"devices here); pass --device to choose one")
+        device = resolve_device(f"cuda:{local_rank}")
+    backend = backend_arg or ("nccl" if device.type == "cuda" else "gloo")
+    if backend == "nccl":
+        if device.type != "cuda":
+            raise ValueError(f"--dist_backend nccl needs CUDA devices, not "
+                             f"{device}; use --dist_backend gloo")
+        shared = (local_world > torch.cuda.device_count()
+                  or (device_arg is not None and local_world > 1))
+        if shared:
+            raise ValueError(
+                f"NCCL refuses ranks that share a card: {local_world} ranks "
+                f"on this host"
+                + (f" all pinned to {device} by --device"
+                   if device_arg is not None else
+                   f" and {torch.cuda.device_count()} CUDA devices")
+                + "; give each rank its own card, or pass --dist_backend "
+                  "gloo to run them over host memory")
+    return device, backend
 
 
 def main(argv=None):
@@ -724,18 +798,22 @@ def main(argv=None):
             ap.add_argument(f"--{f.name}", type=lambda s: s == "True",
                             default=None)
     ap.add_argument("--mesh_tasks", type=int, default=0,
-                    help="task-DP over devices (not ported yet)")
+                    help="shard each meta-batch over this many ranks "
+                         "(task data-parallelism)")
     ap.add_argument("--mesh_edges", type=int, default=0,
-                    help="edge-partitioned training (not ported yet)")
+                    help="edge-partition the (union) graph over this many "
+                         "ranks and train with the sharded full-graph "
+                         "engine (run/edgepart.py) instead of packed "
+                         "subgraphs; combines with --mesh_tasks for a "
+                         "(task, edge) mesh")
     ap.add_argument("--device", default=None,
-                    help="torch device; default cuda (raises without one)")
+                    help="torch device of this rank; default cuda, or "
+                         "cuda:LOCAL_RANK under a mesh (raises without one)")
+    ap.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
+                    help="torch.distributed backend of a mesh; default nccl "
+                         "on CUDA, gloo on the CPU")
     args = ap.parse_args(argv)
 
-    if args.mesh_tasks or args.mesh_edges:
-        raise NotImplementedError(
-            "--mesh_tasks/--mesh_edges: task-DP over torch.distributed and "
-            "edge-partitioned training are not ported to gmeta_tpu_torch yet "
-            "(later slices)")
     cfg = PRESETS[args.preset] if args.preset else Config()
     cfg = dataclasses.replace(cfg)
     for f in dataclasses.fields(Config):
@@ -744,11 +822,42 @@ def main(argv=None):
             setattr(cfg, f.name, v)
     cfg.validate()
 
-    device = resolve_device(args.device)
-    store, datasets, labels_num = build_datasets(cfg)
-    trainer = Trainer(cfg, store, datasets, labels_num, device=device)
-    result = trainer.fit()
-    print(result)
+    if not (args.mesh_tasks or args.mesh_edges):
+        device = resolve_device(args.device)
+        store, datasets, labels_num = build_datasets(cfg)
+        trainer = Trainer(cfg, store, datasets, labels_num, device=device)
+        result = trainer.fit()
+        print(result)
+        return result
+
+    import torch.distributed as dist
+    task, edge = max(args.mesh_tasks, 1), max(args.mesh_edges, 1)
+    world = (dist.get_world_size() if dist.is_initialized()
+             else mesh_mod.env_world())
+    if task * edge > world:
+        raise ValueError(
+            f"--mesh_tasks {args.mesh_tasks} --mesh_edges {args.mesh_edges} "
+            f"needs {task * edge} ranks, but the world has {world}: "
+            f"{mesh_mod.launch_hint(task * edge)}")
+    device, backend = rank_device(args.device, args.dist_backend)
+    created = mesh_mod.init_distributed(backend, device)
+    try:
+        mesh = mesh_mod.make_mesh(task=task, edge=edge, device=device)
+        if args.mesh_edges:
+            from gmeta_tpu_torch.run.edgepart import (EdgePartTrainer,
+                                                      build_edgepart_tasks)
+            store, tasks, labels_num = build_edgepart_tasks(cfg)
+            trainer = EdgePartTrainer(cfg, store, tasks, labels_num, mesh)
+        else:
+            store, datasets, labels_num = build_datasets(cfg)
+            trainer = Trainer(cfg, store, datasets, labels_num,
+                              device=device, mesh=mesh)
+        result = trainer.fit()
+    finally:
+        if created:
+            dist.destroy_process_group()
+    if mesh.rank == 0:
+        print(result)
     return result
 
 

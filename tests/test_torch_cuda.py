@@ -1,6 +1,8 @@
-"""The CUDA kernel of gmeta_tpu_torch against its plain version, the pool
-modes' device decode, pinned window copies and fits, the device extractor
-and a remat train step, on the card.
+"""The CUDA kernel of gmeta_tpu_torch against its plain version (packed
+sets and the rectangular entry point `csr_gather`), the pool modes' device
+decode, pinned window copies and fits, the device extractor, a remat train
+step, the collectives on NCCL and gloo at world size 1, and the launch
+model's refusal of NCCL ranks that share a card.
 Marked `cuda`: they skip where there is no CUDA device (the kernel has no
 CPU mode; the CPU tests hold the plain version against the JAX package).
 This file imports neither jax nor the JAX package, so it also runs where
@@ -254,3 +256,135 @@ def test_remat_train_step_equals_plain_on_cuda(cuda, first_order):
                                atol=0)
     for a, b in zip(p1[:-1], p0[:-1]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
+
+
+# ---- the rectangular entry point (the edge-partitioned engine's gather) ----
+
+def _rect(n_src, n_dst, H, dtype, device, seed=0):
+    """A CSR pair of n_dst output rows over a table of n_src rows: every
+    fifth row empty, row 1 with 3000 edges, the others 28 (the full graph's
+    mean degree), sources drawn with repeats. x holds small integers, so
+    every sum is exact in float32 and the comparisons are exact."""
+    rng = np.random.RandomState(seed)
+    counts = np.full(n_dst, 28)
+    counts[::5] = 0
+    counts[1] = 3000
+    dst = np.repeat(np.arange(n_dst), counts)
+    src = rng.randint(0, n_src, dst.size)
+    pair = sized_spmm.csr_pair(src, dst, n_src, n_dst).to(device)
+    x = torch.from_numpy(rng.randint(-8, 9, (n_src, H)).astype(np.float32))
+    return pair, x.to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [1, 5, 128, 256])
+@pytest.mark.parametrize("n_src, n_dst", [(3000, 700), (400, 1500)])
+def test_csr_gather_matches_plain(cuda, H, dtype, n_src, n_dst):
+    pair, x = _rect(n_src, n_dst, H, dtype, cuda, seed=H)
+    r = torch.from_numpy(np.random.RandomState(H + 1).randint(
+        -8, 9, (n_dst, H)).astype(np.float32)).to(cuda, dtype)
+    packed = dict(sized_spmm.launches)
+    for count, (row_ptr, col), table, rows in (
+            ("fwd", (pair.row_ptr, pair.col), x, n_dst),
+            ("bwd", (pair.row_ptr_t, pair.col_t), r, n_src)):
+        before = sized_spmm.csr_launches[count]
+        got = sized_spmm.csr_gather(row_ptr, col, table, count)
+        torch.cuda.synchronize()
+        assert sized_spmm.csr_launches[count] == before + 1
+        assert got.shape == (rows, H) and got.dtype == dtype
+        assert torch.equal(got, sized_spmm.csr_plain(row_ptr, col, table))
+    assert sized_spmm.launches == packed       # the packed counts stay
+
+
+def test_csr_agg_backward_and_double_backward_match_plain(cuda):
+    pair, x = _rect(900, 600, 16, torch.float32, cuda)
+    x = x / 64                 # keeps the three inner steps from diverging
+
+    def plain(t):
+        return sized_spmm.csr_plain(pair.row_ptr, pair.col, t)
+
+    def meta_grad(agg):
+        w0 = torch.tensor(1.0, device=cuda, requires_grad=True)
+        w = w0
+        for _ in range(3):
+            inner = agg(x * w).pow(2).mean()
+            g, = torch.autograd.grad(inner, w, create_graph=True)
+            w = w - 0.1 * g
+        return torch.autograd.grad(agg(x * w).sum(), w0)[0]
+
+    before = dict(sized_spmm.csr_launches)
+    got = meta_grad(lambda t: sized_spmm.CsrAgg.apply(pair, t))
+    assert all(sized_spmm.csr_launches[k] > before[k] for k in before)
+    torch.testing.assert_close(got, meta_grad(plain), rtol=1e-4, atol=1e-6)
+    # the first gradient, exactly (small integers): A^T r gathered over the
+    # source CSR
+    t = x.clone().requires_grad_()
+    r = torch.randint(-8, 9, (600, 16), device=cuda).float()
+    g, = torch.autograd.grad((sized_spmm.CsrAgg.apply(pair, t) * r).sum(), t)
+    assert torch.equal(g, sized_spmm.csr_plain(pair.row_ptr_t, pair.col_t, r))
+
+
+# ---- the collectives and the launch model on the card -----------------------
+
+def test_collectives_at_world_one_on_nccl_and_gloo(cuda, monkeypatch):
+    """Each collective's autograd Function on a world of one, through NCCL
+    (the all-to-all also started asynchronously) and through a gloo group,
+    which stages CUDA tensors through host memory: the identity, with the
+    gradients and second gradients of the identity."""
+    import torch.distributed as dist
+    from gmeta_tpu_torch.parallel import collectives as coll
+    from gmeta_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    for k in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    assert init_distributed("nccl", cuda)
+    try:
+        mesh = make_mesh(1, 1, device=cuda)
+        gloo = dist.new_group([0], backend="gloo")
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        x0, w, v = (torch.randn(1, 6, 5, device=cuda, generator=gen)
+                    for _ in range(3))
+
+        def via(fn):
+            x = x0.clone().requires_grad_()
+            y = fn(x)
+            g, = torch.autograd.grad((y * y * w).sum(), x, create_graph=True)
+            gg, = torch.autograd.grad((g * v).sum(), x)
+            return y.detach(), g.detach(), gg
+
+        want = via(lambda x: x)
+        for group in (mesh.world, gloo):
+            def a2a_async(x, group=group):
+                pending = coll._Pending()
+                y = coll._AllToAll.apply(x, group, pending)
+                pending.wait()
+                return y
+            for fn in (lambda x, group=group: coll._AllReduceSum.apply(
+                           x, group),
+                       lambda x, group=group: coll._AllToAll.apply(
+                           x, group, None),
+                       a2a_async):
+                for a, b in zip(via(fn), want):
+                    assert a.is_cuda and torch.equal(a, b)
+        mesh.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_nccl_ranks_sharing_a_card_raise(cuda, monkeypatch):
+    """More ranks on the host than cards, under NCCL, raise before any
+    process group exists; so does a rank with no card of its own; gloo on
+    a shared card runs only when asked for."""
+    from gmeta_tpu_torch.run.train import rank_device
+    n = torch.cuda.device_count()
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(n + 1))
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    with pytest.raises(ValueError, match="NCCL refuses"):
+        rank_device("cuda:0", "nccl")
+    with pytest.raises(ValueError, match="NCCL refuses"):
+        rank_device(None, None)
+    with pytest.raises(ValueError, match="NCCL refuses"):
+        rank_device("cuda:0", None)
+    assert rank_device("cuda:0", "gloo") == (torch.device("cuda:0"), "gloo")
+    monkeypatch.setenv("LOCAL_RANK", str(n))
+    with pytest.raises(RuntimeError, match="no card of its own"):
+        rank_device(None, None)

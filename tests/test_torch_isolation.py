@@ -1,14 +1,17 @@
-"""The port stands alone: neither gmeta_tpu_torch nor its GPU scripts
-(chip_smoke.py, sweep_sized_spmm.py) import jax, optax or the JAX package,
-and neither a port train step, resuming from a checkpoint the JAX package
-wrote, nor building datasets with the port's C++ engine loads them (nor
-the JAX package's engine library)."""
+"""The port stands alone: neither gmeta_tpu_torch (its multi-rank modules
+included) nor its GPU scripts (chip_smoke.py, sweep_sized_spmm.py) import
+jax, optax or the JAX package, and neither a port train step, resuming
+from a checkpoint the JAX package wrote, building datasets with the port's
+C++ engine, nor a spawned rank of a mesh loads them (nor the JAX package's
+engine library)."""
 
 import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "optax", "gmeta_tpu")
@@ -28,6 +31,11 @@ def test_no_jax_imports_in_port_sources():
     files = sorted((ROOT / "gmeta_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "sweep_sized_spmm.py"]
     assert len(files) > 15
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for module in ("mesh", "collectives", "dp", "launch", "edgepart",
+                   "edgepart_train"):
+        assert f"gmeta_tpu_torch/parallel/{module}.py" in names
+    assert "gmeta_tpu_torch/run/edgepart.py" in names
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -144,3 +152,13 @@ def test_native_build_datasets_loads_no_jax(tmp_path):
         import pytest
         pytest.skip("g++ is absent: the port's native engine cannot be built")
     _run(NATIVE.replace("sys.argv[1]", repr(str(tmp_path / "ds"))))
+
+
+def test_spawned_ranks_load_no_jax(tmp_path):
+    """Two gloo ranks, each running a task-DP step and an edge-partitioned
+    step (tests/torch_rank_worker.py), load no jax, optax or gmeta_tpu."""
+    from torch_rank_worker import run_scenario
+    outs = run_scenario("isolation", 2, tmp_path, timeout=180.0)
+    for out in outs:
+        assert out["loaded"].size == 0, out["loaded"]
+        assert np.isfinite(out["loss"])

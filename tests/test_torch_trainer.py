@@ -1,6 +1,6 @@
 """The port's trainer (gmeta_tpu_torch.run.train) against the JAX package's
 Trainer on the tiny data of tests/test_trainer.py, plus the entry points'
-device rule and the CLI options that are not ported yet."""
+device rule and the launch check of the mesh options."""
 
 import dataclasses
 import json
@@ -86,11 +86,14 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch):
 
 @pytest.mark.parametrize("override", [dict(mesh_tasks=2),
                                       dict(mesh_edges=2)])
-def test_unported_options_raise(override):
-    """Only --mesh_tasks and --mesh_edges are left; every Config option,
-    remat_inner and the native extractor included, is taken."""
+def test_unported_options_raise(override, monkeypatch):
+    """Every option is ported now: --mesh_tasks and --mesh_edges run, and
+    one that asks for more ranks than the world has raises, saying how to
+    launch them; every Config option, remat_inner and the native
+    extractor included, is taken."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     (flag, value), = override.items()
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         train_mod.main(["--data_dir=unused", f"--{flag}={value}",
                         "--device=cpu"])
     store, ds = synthetic_disjoint(**DATA)
@@ -138,5 +141,5 @@ def test_cli_builds_datasets_like_jax_and_trains(tmp_path, capsys):
         assert "extractor: native C++ (requested 'native')" in \
             capsys.readouterr().out
         assert res.global_step == 2
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh_tasks 2"):
         train_mod.main(argv + ["--mesh_tasks=2", "--device=cpu"])
