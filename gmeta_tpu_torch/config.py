@@ -7,9 +7,8 @@ same semantics. The five presets reproduce the README recipes
 (G-Meta/README.md:66-179).
 
 The fields, defaults and presets are those of the JAX package's config, so a
-flag means the same thing to both packages. Fields whose feature is not
-ported yet are kept and rejected with NotImplementedError where they are
-read (run/train.py), never silently ignored.
+flag means the same thing to both packages; every field's feature runs in
+the port.
 """
 
 from __future__ import annotations
@@ -75,7 +74,7 @@ class Config:
     checkpoint_every_steps: int = 0     # 0 = epoch-granular only
     metrics_path: str = ""              # jsonl metrics stream; empty = stdout only
     remat_inner: bool = False           # recompute the inner step in the
-                                        # backward (not ported yet: raises)
+                                        # backward
     track_train_curve: bool = True      # per-step query evals during training
                                         # (telemetry only, meta.py:129-157;
                                         # False trains identically)
