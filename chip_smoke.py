@@ -6,8 +6,9 @@
 Phases; any failure raises and the script exits non-zero:
   1. device   — CUDA must be available; prints the card's name and power
                 limit (nvidia-smi).
-  2. build    — compiles csrc/sized_spmm.cu from this checkout (nvcc,
-                sm_90a).
+  2. build    — compiles csrc/sized_spmm.cu (the packed body, the
+                full-graph body and the combine kernel) from this checkout
+                (nvcc, sm_90a).
   3. checks   — each kernel against its plain PyTorch version on the card,
                 on packed edge lists (duplicates, pad edges): P in
                 {512, 1024}, live sizes {0, 1, 127, 129, P},
@@ -77,15 +78,22 @@ Phases; any failure raises and the script exits non-zero:
                 preset's widths and depth, tasks cut (batchsz 96, eval 32):
                 the edge-partitioned engine on a world of one (NCCL), its
                 step seconds, warm tasks/s, peak memory, csr_gather launches
-                per direction, communication plan and one profiled
-                meta-step (device time by kernel); then the rectangular
-                entry point `csr_gather` timed on that engine's CSR pair
-                (the whole graph, both directions, H = 128 and 256, float32)
-                like phase 5, against torch.sparse.mm of the same CSR and
-                its bound. (c) ranks sharing this card over gloo, each a
-                process of its own (parallel/launch.py, this script with
-                --rank): --mesh_tasks 4 on the packed path (theta equal to
-                (a)), and --mesh_tasks 2 --mesh_edges 2 on the edge engine
+                per direction (no combine: no row of this graph is split),
+                communication plan and one profiled meta-step (device time
+                by kernel); then the rectangular entry point `csr_gather`
+                timed on that engine's CSR pair and on a power-law pair of
+                the same V and nnz (both directions, H = 128 and 256,
+                float32; `time_rect`), against its plain version, the
+                row-wise body it ran before, torch.sparse.mm and its bound,
+                and the combine kernel alone; then main() with
+                --mesh_edges 1 on a power-law graph of that size (depth cut
+                as in (c)), whose split rows launch the combine kernel.
+                (c) ranks sharing this card over gloo, each a process of
+                its own (parallel/launch.py, this script with --rank):
+                --mesh_tasks 4 on the packed path (theta equal to (a)), its
+                gradient at equal params at every step 2-6 (resumed from
+                (a)'s checkpoints, one step each, --one-step-rank), and
+                --mesh_tasks 2 --mesh_edges 2 on the edge engine
                 with the depth cut (task_num 4, update_step 2,
                 update_step_test 2) against an in-process world of one of
                 the same flags; rtol 1e-5, atol 1e-5, the head bias
@@ -94,10 +102,10 @@ Phases; any failure raises and the script exits non-zero:
                 and the all-reduces. Gloo between ranks of one card is no
                 measure of scaling across cards.
 
-Phase 2 builds the CUDA kernel (nvcc) and the host extraction engine (g++)
+Phase 2 builds the CUDA kernels (nvcc) and the host extraction engine (g++)
 at once. Prints the kernels' JSON line (the packed kernel's launches summed
-over phases 7-10 and every rank, the rectangular entry point's over phase
-10), the slice's JSON line (with the modes' warm tasks/s, data_s and peak
+over phases 7-10 and every rank, the rectangular entry point's and its
+combine kernel's over phase 10), the slice's JSON line (with the modes' warm tasks/s, data_s and peak
 device memory under "modes", phase 9's numbers under "cli" and phase 10's
 under "mesh"), the card's name and power limit, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or the JAX package,
@@ -106,6 +114,7 @@ and neither do its rank processes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -161,19 +170,25 @@ def cuda_ms(fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
-def timed_row(kernel, plain, library, nnz, H, read_rows, n_out):
-    """Median ms of a gather kernel, its plain version and one library call
-    computing the same, beside the least time the card could take for
-    this data: the edges' 2 x nnz x H operations, or the table rows they
-    name and the int32 CSR read once and the whole (n_out, H) float32
-    output written once, whichever is longer."""
-    ms = cuda_ms(kernel)
+def gather_bound(nnz, H, read_rows, n_out):
+    """The least time the card could take for a gather of this data, in ms,
+    and what bounds it: the edges' 2 x nnz x H operations, or the table
+    rows they name and the int32 CSR read once and the whole (n_out, H)
+    float32 output written once, whichever is longer; with those bytes."""
     t_ops = 2.0 * nnz * H / FP32_PEAK
     nbytes = 4.0 * (read_rows * H + n_out * H) + 4.0 * (n_out + 1 + nnz)
     t_bytes = nbytes / HBM_BYTES_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", nbytes)
+
+
+def timed_row(kernel, plain, library, nnz, H, read_rows, n_out):
+    """Median ms of a gather kernel, its plain version and one library call
+    computing the same, beside `gather_bound`."""
+    ms = cuda_ms(kernel)
+    bound_ms, bound_by, nbytes = gather_bound(nnz, H, read_rows, n_out)
     return dict(ms=ms, plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_ms=bound_ms, bound_by=bound_by,
                 bound_gb=nbytes / 1e9, x_rows_read=read_rows,
                 gb_per_s=nbytes / (ms * 1e-3) / 1e9)
 
@@ -530,6 +545,7 @@ def run_mode(cfg, store, ds, mode, kill_after_windows=0):
            "entered_host_window": bool(hit), "result": result,
            "theta": [p.detach().cpu().numpy() for p in trainer.learner.params],
            "global_step": trainer.global_step}
+    out["theta_sha256"] = theta_digest(out["theta"])
     assert out["launches"]["fwd"] > 0 and out["launches"]["bwd"] > 0, out
     assert out["entered_host_window"] == (mode == "host_window"), mode
     kind = "train_step" if mode == "streaming" else "train_window"
@@ -596,7 +612,8 @@ def fit_modes(cfg, store, ds):
             f"{r['peak_gb']:.2f} GB, launches {r['launches']}"
             + (f", data_s {[round(x, 3) for x in r['data_s']]}"
                if r["data_s"] else "")
-            + (f", pool {r['pool']}" if "pool" in r else ""))
+            + (f", pool {r['pool']}" if "pool" in r else "")
+            + f", theta sha256 {r['theta_sha256'][:16]}")
     steps = runs["streaming"][0]["global_step"]
     assert steps == len(ds["train"]) // cfg.task_num
     for r in (r for rs in runs.values() for r in rs):
@@ -645,7 +662,7 @@ def fit_modes(cfg, store, ds):
     for m, rs in runs.items():
         summary[m] = {k: [r.get(k) for r in rs] for k in
                       ("tasks_per_s", "record_tasks_per_s", "peak_gb",
-                       "fit_s", "data_s", "launches")}
+                       "fit_s", "data_s", "launches", "theta_sha256")}
         if "pool" in rs[0]:
             summary[m]["pool"] = [r["pool"] for r in rs]
         summary[m]["tasks_per_s_mean"] = statistics.mean(
@@ -834,12 +851,12 @@ def spy_main(argv):
 
 
 def zero_counts():
-    """Every kernel launch count (both entry points) and the collectives'
-    seconds and calls, set to 0."""
+    """Every kernel launch count (both entry points and the combine kernel)
+    and the collectives' seconds and calls, set to 0."""
     from gmeta_tpu_torch.ops import sized_spmm as sp
     from gmeta_tpu_torch.parallel import collectives
-    for counts in (sp.launches, sp.csr_launches, collectives.seconds,
-                   collectives.calls):
+    for counts in (sp.launches, sp.csr_launches, sp.combine_launches,
+                   collectives.seconds, collectives.calls):
         for k in counts:
             counts[k] = 0
 
@@ -870,6 +887,7 @@ def cli_fit(remat, metrics_path, device, extra=()):
     assert trainer.cfg.remat_inner == remat
     assert not any(sp.csr_launches.values()), sp.csr_launches
     out["theta"] = [p.detach().cpu().numpy() for p in trainer.learner.params]
+    out["theta_sha256"] = theta_digest(out["theta"])
     recs = [json.loads(line) for line in open(metrics_path)]
     steps = [r for r in recs if r["kind"] == "train_step"]
     assert len(steps) == 6 and result.global_step == 6, steps
@@ -969,7 +987,7 @@ def cli_phase(store4, ds4, device):
         summary[f"fit_remat_{remat}"] = {
             k: [r[k] for r in rs] for k in
             ("main_s", "warm_tasks_per_s", "tasks_per_s", "peak_gb",
-             "launches")}
+             "launches", "theta_sha256")}
     return summary, launches, fits[False][0]
 
 
@@ -984,6 +1002,16 @@ EDGE_CUT = EDGE_FLAGS + ["--batchsz", "8", "--eval_batchsz", "4",
                          "--task_num", "4", "--update_step", "2",
                          "--update_step_test", "2"]
 SHARED_CARD = ["--dist_backend", "gloo", "--device", "cuda:0"]
+
+
+def theta_digest(theta):
+    """sha256 of a fit's parameters' bytes, in order: two fits with equal
+    digests ended at bitwise-equal theta."""
+    import hashlib
+    h = hashlib.sha256()
+    for p in theta:
+        h.update(p.tobytes())
+    return h.hexdigest()
 
 
 def edge_fit(argv, metrics_path, device):
@@ -1001,9 +1029,11 @@ def edge_fit(argv, metrics_path, device):
                                        str(metrics_path)])
     torch.cuda.synchronize()
     out = {"main_s": time.time() - t0, "csr_launches": dict(sp.csr_launches),
+           "combine_launches": dict(sp.combine_launches),
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "result": dataclasses.asdict(result), "comm": trainer.comm,
            "theta": [p.detach().cpu().numpy() for p in trainer.engine.params]}
+    out["theta_sha256"] = theta_digest(out["theta"])
     assert trainer.engine.device.type == device.type
     assert not any(sp.launches.values()), sp.launches
     assert all(v > 0 for v in out["csr_launches"].values()), out
@@ -1023,65 +1053,240 @@ def edge_fit(argv, metrics_path, device):
 
 
 def time_rect(pair, device):
-    """The rectangular entry point at the full-graph shape: the edge
-    engine's CSR pair (both directions), H = 128 and 256, float32: kernel,
-    plain version and torch.sparse.mm of the same CSR, medians of CUDA-event
-    times, beside the least time the card could take for this data (the
-    table rows the edges name and the int32 indices read once, the output
-    written once; or 2 x nnz x H operations)."""
+    """The rectangular entry point at the full-graph shape, on two CSR
+    pairs of one V and nnz: the edge engine's (uniform endpoints, rows of
+    about 28 edges) and a power-law pair (`powerlaw_edges`, rows of up to
+    about 93k edges, split by the plan). Both directions, H = 128 and 256,
+    float32. Checks, each on the card: on small-integer tables, whose sums
+    are exact in any order, the kernel (body and combine) and
+    torch.sparse.mm equal `csr_plain`; on normal tables, two launches
+    give the same bits, every row that is not split equals the row-wise
+    body (`rowwise_gather`, the kernel csr_gather ran before its
+    full-graph body) bitwise, and every row lies within TOLS["float32"]
+    of `csr_plain` (uniform) or within `rounding_bound` of it (power-law,
+    rows of hundreds of edges); the combine kernel equals
+    `combine_plain` on exact partials. Times (medians of CUDA-event
+    times): the kernel, the row-wise body, the plain version and
+    torch.sparse.mm of the same CSR, beside `gather_bound`; the combine
+    kernel alone beside its own bound. Returns ({(graph, count, H): row},
+    the combine kernel's row, shapes)."""
     import torch
     from gmeta_tpu_torch.ops import sized_spmm as sp
-    rows = {}
+    rows, combine = {}, None
     g = torch.Generator(device=device).manual_seed(1)
     n_dst, n_src = pair.row_ptr.numel() - 1, pair.row_ptr_t.numel() - 1
     nnz = pair.col.numel()
-    for count, (row_ptr, col), n_out, n_in in (
-            ("fwd", (pair.row_ptr, pair.col), n_dst, n_src),
-            ("bwd", (pair.row_ptr_t, pair.col_t), n_src, n_dst)):
-        read_rows = torch.unique(col).numel()
-        sparse = torch.sparse_csr_tensor(
-            row_ptr, col, torch.ones(nnz, device=device),
-            size=(n_out, n_in), check_invariants=False)
-        for H in (128, 256):
-            x = torch.randn(n_in, H, device=device, generator=g)
-            got = sp.csr_gather(row_ptr, col, x, count)
-            want = sp.csr_plain(row_ptr, col, x)
-            rtol, atol = TOLS["float32"]
-            torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
-            torch.testing.assert_close(torch.sparse.mm(sparse, x), want,
-                                       rtol=rtol, atol=atol)
-            e = (got - want).abs().max().item()
-            del got, want
-            row = rows[(count, H)] = dict(timed_row(
-                lambda: sp.csr_gather(row_ptr, col, x, count),
-                lambda: sp.csr_plain(row_ptr, col, x),
-                lambda: torch.sparse.mm(sparse, x),
-                nnz, H, read_rows, n_out), max_abs_err=e)
-            # the rows the kernel gathers, each edge's once
-            row["edge_gb_per_s"] = 4.0 * nnz * H / (row["ms"] * 1e-3) / 1e9
-            log(f"  csr_gather {count} H={H}: kernel {row['ms']:.3f} ms "
-                f"({100 * row['bound_ms'] / row['ms']:.1f}% of the bound; "
-                f"rows gathered at {row['edge_gb_per_s']:.0f} GB/s), plain "
-                f"{row['plain_ms']:.3f} ms, torch.sparse.mm "
-                f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}), max abs err {e:.3g}")
-            del x
-        del sparse
+    t0 = time.time()
+    power = sp.csr_pair(*powerlaw_edges(n_src, nnz), n_src, n_dst).to(device)
+    lengths = (power.row_ptr[1:] - power.row_ptr[:-1]).long()
+    log(f"  power-law CSR built in {time.time() - t0:.1f} s: longest row "
+        f"{int(lengths.max())}, median {float(lengths.median()):.0f}, "
+        f"{power.split.rows.numel()} rows above {power.split.chunk} edges "
+        f"cut into {power.split.chunk_row.numel()} chunks")
+    for graph, p in (("uniform", pair), ("powerlaw", power)):
+        for count, row_ptr, col, split, n_out, n_in in (
+                ("fwd", p.row_ptr, p.col, p.split, n_dst, n_src),
+                ("bwd", p.row_ptr_t, p.col_t, p.split_t, n_src, n_dst)):
+            read_rows = torch.unique(col).numel()
+            sparse = torch.sparse_csr_tensor(
+                row_ptr, col, torch.ones(nnz, device=device),
+                size=(n_out, n_in), check_invariants=False)
+            whole = torch.ones(n_out, dtype=torch.bool, device=device)
+            whole[split.rows.long()] = False          # rows not split
+            for H in (128, 256):
+                xi = torch.randint(-8, 9, (n_in, H), device=device,
+                                   generator=g).float()
+                exact = sp.csr_plain(row_ptr, col, xi)
+                assert torch.equal(sp.csr_gather(row_ptr, col, xi, count,
+                                                 split), exact)
+                assert torch.equal(torch.sparse.mm(sparse, xi), exact)
+                x = torch.randn(n_in, H, device=device, generator=g)
+                got = sp.csr_gather(row_ptr, col, x, count, split)
+                assert torch.equal(got, sp.csr_gather(row_ptr, col, x,
+                                                      count, split))
+                assert torch.equal(got[whole],
+                                   rowwise_gather(row_ptr, col, x)[whole])
+                want = sp.csr_plain(row_ptr, col, x)
+                if graph == "uniform":
+                    rtol, atol = TOLS["float32"]
+                    torch.testing.assert_close(got, want, rtol=rtol,
+                                               atol=atol)
+                else:        # rows of up to `chunk` edges, split rows
+                    assert ((got - want).abs()
+                            <= rounding_bound(row_ptr, col, x)).all()
+                e = (got - want).abs().max().item()
+                if count == "fwd" and graph == "powerlaw" and H == 256:
+                    combine = time_combine(split, row_ptr, col, xi, exact,
+                                           device)
+                del xi, exact, got, want
+                row = rows[(graph, count, H)] = dict(timed_row(
+                    lambda: sp.csr_gather(row_ptr, col, x, count, split),
+                    lambda: sp.csr_plain(row_ptr, col, x),
+                    lambda: torch.sparse.mm(sparse, x),
+                    nnz, H, read_rows, n_out), max_abs_err=e,
+                    rowwise_ms=cuda_ms(lambda: rowwise_gather(row_ptr, col,
+                                                              x)),
+                    longest_row=int((row_ptr[1:] - row_ptr[:-1]).max()),
+                    split_rows=split.rows.numel(),
+                    chunks=split.chunk_row.numel(),
+                    slab=sp.slab_width(n_in, H, 4,
+                                       sp.l2_bytes(device.index or 0)))
+                # the rows the kernel gathers, each edge's once
+                row["edge_gb_per_s"] = 4.0 * nnz * H / (row["ms"] * 1e-3) / 1e9
+                log(f"  csr_gather {graph} {count} H={H}: kernel "
+                    f"{row['ms']:.3f} ms ({100 * row['bound_ms'] / row['ms']:.1f}"
+                    f"% of the bound; rows gathered at "
+                    f"{row['edge_gb_per_s']:.0f} GB/s; slab {row['slab']}), "
+                    f"row-wise body {row['rowwise_ms']:.3f} ms, plain "
+                    f"{row['plain_ms']:.3f} ms, torch.sparse.mm "
+                    f"{row['library_ms']:.3f} ms, bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}), max abs "
+                    f"err {e:.3g} (split rows {row['split_rows']})")
+                del x
+            del sparse
     torch.cuda.empty_cache()
-    return rows, f"V={n_dst} nnz={nnz}"
+    return rows, combine, {"uniform": f"V={n_dst} nnz={nnz}",
+                           "powerlaw": f"V={n_dst} nnz={nnz} Zipf-0.8 "
+                                       f"in-degrees, seed 0"}
 
 
-def rank_main(out_path, argv):
+def rounding_bound(row_ptr, col, x):
+    """Per output element, how far two float32 sums of its row's n terms,
+    taken in any two orders, can part: 2 (n - 1) 2^-24 sum |x| (each sum
+    is within (n - 1) 2^-24 sum |x| of the exact one)."""
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    n = (row_ptr[1:] - row_ptr[:-1]).float()[:, None]
+    return 2 * (n - 1).clamp(min=0) * 2.0**-24 * sp.csr_plain(
+        row_ptr, col, x.abs())
+
+
+def time_combine(split, row_ptr, col, xi, exact, device):
+    """The combine kernel alone on the power-law CSR's split rows at
+    H = xi's width: the chunks' float32 partial sums of the small-integer
+    table xi (exact, so the kernel must equal `combine_plain` bitwise, and
+    the rows it writes must equal `exact`, the plain gather), timed beside
+    combine_plain, one index_add_ that sums the partials per row, and its
+    bound: the partials read once, the split rows written once."""
+    import torch
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    H = xi.shape[1]
+    starts = split.chunk_start.long()
+    ends = torch.minimum(starts + split.chunk,
+                         row_ptr[split.chunk_row.long() + 1].long())
+    per = ends - starts                               # edges per chunk
+    edge = (torch.repeat_interleave(starts - torch.cumsum(per, 0) + per, per)
+            + torch.arange(int(per.sum()), device=device))
+    owner = torch.repeat_interleave(torch.arange(per.numel(),
+                                                 device=device), per)
+    partial = torch.zeros((per.numel(), H), device=device).index_add_(
+        0, owner, xi[col[edge].long()])
+    out = torch.zeros_like(exact)
+    got = sp.csr_combine(split, partial, out.clone())
+    assert torch.equal(got, sp.combine_plain(split, partial, out.clone()))
+    assert torch.equal(got[split.rows.long()], exact[split.rows.long()])
+    n_split = split.rows.numel()
+    owner_row = torch.repeat_interleave(
+        torch.arange(n_split, device=device),
+        (split.chunk_ptr[1:] - split.chunk_ptr[:-1]).long())
+    nbytes = 4.0 * (partial.numel() + n_split * H + 2 * n_split + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, partial.numel() / FP32_PEAK
+    row = dict(
+        ms=cuda_ms(lambda: sp.csr_combine(split, partial, out)),
+        plain_ms=cuda_ms(lambda: sp.combine_plain(split, partial, out)),
+        library_ms=cuda_ms(lambda: torch.zeros(
+            (n_split, H), device=device).index_add_(0, owner_row, partial)),
+        bound_ms=1e3 * max(t_bytes, t_ops),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        max_abs_err=0.0, split_rows=n_split, chunks=per.numel(), H=H)
+    log(f"  combine kernel, {n_split} split rows from {per.numel()} chunks, "
+        f"H={H}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"index_add_ {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); equal to "
+        f"combine_plain and to the plain gather")
+    return row
+
+
+def powerlaw_edges(V, nnz, seed=0):
+    """Edges (src, dst) of a power-law graph of V nodes and nnz edges:
+    destinations drawn with Zipf-0.8 weights, so in-degrees are power-law;
+    sources uniform; sorted by destination. The generator of
+    scripts/bench_edges.py (`powerlaw_graph`), copied, at a given nnz."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    w = 1.0 / np.arange(1, V + 1) ** 0.8
+    w /= w.sum()
+    dst = rng.choice(V, size=nnz, p=w)
+    src = rng.randint(0, V, size=nnz)
+    order = np.argsort(dst, kind="stable")
+    return src[order].astype(np.int32), dst[order].astype(np.int32)
+
+
+def rowwise_gather(row_ptr, col, x):
+    """The packed path's body (csr_gather_kernel, one lane group per row
+    over all of H, rows in order) on a rectangular CSR: the kernel that
+    `csr_gather` ran before its full-graph body, a yardstick here. Counted
+    in no launch count."""
+    import torch
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    n_rows = row_ptr.numel() - 1
+    out = torch.empty((n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    sp._run_kernel(row_ptr, col, x, out, n_rows, "row-wise")
+    return out
+
+
+class OneStep(Exception):
+    """Raised in a resumed fit after its first checkpoint: its one step is
+    taken and saved."""
+
+
+@contextlib.contextmanager
+def first_save_stops():
+    """Within it, Trainer._save raises OneStep after its first save (after
+    the save's barrier, so every rank of a mesh stops there); yields the
+    list that receives the trainer."""
+    from gmeta_tpu_torch.run.train import Trainer
+    save, stopped = Trainer._save, []
+
+    def save_then_stop(self, *args, **kwargs):
+        save(self, *args, **kwargs)
+        stopped.append(self)
+        raise OneStep
+    Trainer._save = save_then_stop
+    try:
+        yield stopped
+    finally:
+        Trainer._save = save
+
+
+def one_step_fit(argv):
+    """main(argv) resumed from its checkpoint directory and stopped after
+    the first step it saves; returns its Trainer."""
+    with first_save_stops() as stopped:
+        try:
+            spy_main(argv)
+        except OneStep:
+            pass
+    trainer, = stopped
+    return trainer
+
+
+def rank_main(out_path, argv, one_step=False):
     """One rank of phase 10(c), started by spawn_ranks: main(argv) with the
     counts set to 0 before it. Writes this rank's theta, kernel launch
     counts, collective seconds and, for the edge engine, its communication
-    plan to out_path (npz)."""
+    plan to out_path (npz). With `one_step`, the fit stops after its first
+    checkpoint (every rank, after the save's barrier), before evaluating."""
     import numpy as np
     from gmeta_tpu_torch.ops import sized_spmm as sp
     from gmeta_tpu_torch.parallel import collectives
     zero_counts()
     t0 = time.time()
-    result, trainer = spy_main(argv)
+    if one_step:
+        trainer = one_step_fit(argv)
+        global_step = trainer.global_step
+    else:
+        result, trainer = spy_main(argv)
+        global_step = result.global_step
     engine = getattr(trainer, "engine", None)
     params = engine.params if engine is not None else trainer.learner.params
     meta = {"rank": int(os.environ["RANK"]), "main_s": time.time() - t0,
@@ -1089,17 +1294,17 @@ def rank_main(out_path, argv):
             "csr_launches": dict(sp.csr_launches),
             "seconds": dict(collectives.seconds),
             "calls": dict(collectives.calls),
-            "global_step": result.global_step,
+            "global_step": global_step,
             "comm": getattr(trainer, "comm", None)}
     np.savez(out_path, meta=json.dumps(meta),
              **{f"theta{i}": p.detach().cpu().numpy()
                 for i, p in enumerate(params)})
 
 
-def spawn_fit(argv, nprocs, tag):
+def spawn_fit(argv, nprocs, tag, one_step=False):
     """Phase 10(c): main(argv) as `nprocs` ranks sharing this card over
-    gloo, each in its own process. Returns each rank's (meta, theta) and
-    the wall seconds."""
+    gloo, each in its own process (`rank_main`, one step with
+    `one_step`). Returns each rank's (meta, theta) and the wall seconds."""
     import numpy as np
     from gmeta_tpu_torch.parallel.launch import spawn_ranks
     root = Path(__file__).resolve().parent
@@ -1109,7 +1314,8 @@ def spawn_fit(argv, nprocs, tag):
     env = dict(os.environ, PYTHONPATH=str(root), OMP_NUM_THREADS="2")
     fresh_card()
     t0 = time.time()
-    spawn_ranks([sys.executable, str(root / "chip_smoke.py"), "--rank",
+    spawn_ranks([sys.executable, str(root / "chip_smoke.py"),
+                 "--one-step-rank" if one_step else "--rank",
                  str(out_dir / f"{tag}_rank"), *argv], nprocs, timeout=420,
                 env=env, cwd=str(root))
     wall = time.time() - t0
@@ -1136,19 +1342,19 @@ def every_step(ckpt_dir):
 
 
 def compare_steps(got_dir, want_dir, meta_lr, what, grad_atol=1e-5):
-    """Two checkpointed fits (rank 0's files for a mesh), step by step. The
-    first step's gradient (Adam's first moment after it, 0.1 x the
-    gradient) must equal the reference's at rtol 1e-5, atol `grad_atol` of
-    its largest entry: the same reduction, summed in another order. theta
-    cannot be held that tight: Adam scales every entry's update to about
-    meta_lr, so an entry whose gradient is near Adam's eps (1e-8), or
-    thousands of times below the largest entry, turns a summation-order
-    error into an update error of a fraction of meta_lr, which the next
-    steps carry on. theta after each step is held within
-    2 x step x meta_lr, Adam's own bound on how far two runs can move an
-    entry apart (the bound the head bias is held to everywhere). Returns
-    the step-1 gradient's largest difference over its largest entry, and
-    per step theta's (max abs, max rel without the head bias)."""
+    """Two checkpointed fits from one initial theta (rank 0's files for a
+    mesh), step by step. The first step's gradient (Adam's first moment
+    after it, 0.1 x the gradient) must equal the reference's at rtol 1e-5,
+    atol `grad_atol` of its largest entry: the same reduction at the same
+    params, summed in another order. After step 1 the two fits no longer
+    share their params, so their later gradients differ by more than
+    rounding; `equal_params_steps` holds those, one step at a time from
+    the reference's own checkpoints. Here theta after each step is only
+    held within 2 x step x meta_lr, the furthest two Adam runs can move an
+    entry apart, a check that a wrong step count or learning rate fails.
+    Returns the step-1 gradient's largest difference over its largest
+    entry, and per step theta's (max abs, max rel without the head
+    bias)."""
     import numpy as np
     from gmeta_tpu_torch.utils import checkpoint as ckpt
 
@@ -1178,14 +1384,143 @@ def compare_steps(got_dir, want_dir, meta_lr, what, grad_atol=1e-5):
                               for k in sorted(got)]}
 
 
+def _ckpt(d, step):
+    """(params, mu, nu, count) of checkpoint `step` in d, as numpy."""
+    import numpy as np
+    from gmeta_tpu_torch.utils import checkpoint as ckpt
+    state = ckpt.restore(str(Path(d) / f"ckpt_{step:08d}.pkl"))
+    opt = state["opt_state"]
+    return ([np.asarray(x, np.float64) for x in state["params"]],
+            [np.asarray(x, np.float64) for x in opt["mu"]],
+            [np.asarray(x, np.float64) for x in opt["nu"]],
+            int(np.asarray(opt["count"])))
+
+
+def _resume_dir(ref_dir, name, step):
+    """A fresh checkpoint directory holding only the reference's
+    checkpoint `step`."""
+    d = CKPT10 / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    ckpt = f"ckpt_{step:08d}.pkl"
+    shutil.copy(Path(ref_dir) / ckpt, d / ckpt)
+    os.symlink(ckpt, d / "latest")
+    return d
+
+
+def equal_params_steps(ref_dir, mesh_argv, chunk_argv, steps, meta_lr):
+    """Phase 10(c): the task-DP gradient at equal params, step by step. For
+    each step k, from the reference's (a world of one, 32 tasks in one
+    batch) checkpoint k - 1, two runs take step k and stop: `mesh_argv` on
+    4 gloo ranks (`spawn_fit` one_step; each rank runs 8 tasks in one
+    batch), and `chunk_argv`, a world of one in this process that runs the
+    same 32 tasks in chunks of 8 (what each rank computes, in turn). Each
+    run's gradient is g_k = 10 (mu_k - 0.9 mu_{k-1}) (Adam's first moment,
+    b1 = 0.9). The 4 ranks' must equal the chunked world's at rtol 1e-5,
+    atol 1e-5 of its largest entry (step 1's tolerances): the task split's
+    own sum. Against the reference, whose batch has another shape (and so
+    other kernels, rounding otherwise), the 4 ranks' gradient is reported:
+    its largest difference over the largest entry, the entries outside
+    step 1's tolerances and the columns they lie in, and the same for the
+    chunked world. And every run's theta_k must be Adam's step (b2 0.999,
+    eps 1e-8) from theta_{k-1} by its own moments, recomputed here in
+    float64, to within the float32 rounding of that step (1e-4 of the
+    step, 2^-23 of theta): theta parts from the reference only as Adam
+    moves the gradients it is given. Returns these numbers per step."""
+    import numpy as np
+    out = {}
+    for k in steps:
+        theta0, mu0, _, count0 = _ckpt(ref_dir, k - 1)
+        t0 = time.time()
+        d = _resume_dir(ref_dir, f"r{k}", k - 1)
+        ranks, wall = spawn_fit(mesh_argv + every_step(d), 4, f"r{k}",
+                                one_step=True)
+        for meta, _ in ranks:
+            assert meta["global_step"] == k, meta
+        d8 = _resume_dir(ref_dir, f"q{k}", k - 1)
+        fresh_card()
+        assert one_step_fit(chunk_argv + every_step(d8)).global_step == k
+        runs = {"ref": _ckpt(ref_dir, k), "mesh": _ckpt(d, k),
+                "chunked": _ckpt(d8, k)}
+        grads = {w: [10.0 * (m - 0.9 * m0) for m, m0 in zip(r[1], mu0)]
+                 for w, r in runs.items()}
+        for w, (theta, mu, nu, count) in runs.items():
+            assert count == count0 + 1, (w, count, count0)
+            bc1, bc2 = 1 - 0.9 ** count, 1 - 0.999 ** count
+            for i, (p, p0, m, v) in enumerate(zip(theta, theta0, mu, nu)):
+                u = meta_lr * (m / bc1) / (np.sqrt(v / bc2) + 1e-8)
+                # float32: the bias corrections 1 - b^count round to 2^-24
+                # absolute, 1e-5 of the step at count >= 2; theta to 2^-24
+                assert (np.abs(p - (p0 - u)) <= 1e-4 * np.abs(u)
+                        + 2.0**-23 * np.abs(p) + 1e-12).all(), (
+                    f"step {k}, {w}: param {i} is not Adam's step by its "
+                    f"own moments")
+
+        def parting(got, want):
+            scale = max(float(np.abs(g).max()) for g in want)
+            far = [np.abs(x - y) > 1e-5 * np.abs(y) + 1e-5 * scale
+                   for x, y in zip(got, want)]
+            worst = int(np.argmax([f.sum() for f in far]))
+            cols = (np.unique(np.nonzero(far[worst])[-1]).tolist()
+                    if far[worst].ndim > 1 else [])
+            return {"grad": max(float(np.abs(x - y).max()) for x, y in
+                                zip(got, want)) / scale,
+                    "entries_outside": int(sum(f.sum() for f in far)),
+                    "param": worst, "columns": cols[:16]}
+        split = parting(grads["mesh"], grads["chunked"])
+        assert split["entries_outside"] == 0, (
+            f"step {k}: the 4 ranks' gradient at equal params is not the "
+            f"chunked world's: {split}")
+        out[k] = {"mesh_vs_chunked": split,
+                  "mesh_vs_ref": parting(grads["mesh"], grads["ref"]),
+                  "chunked_vs_ref": parting(grads["chunked"], grads["ref"]),
+                  "theta_mesh_vs_ref": max(
+                      float(np.abs(x - y).max())
+                      for x, y in zip(runs["mesh"][0], runs["ref"][0])),
+                  "wall_s": wall, "step_s": time.time() - t0}
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(d8, ignore_errors=True)
+        log(f"  (c) step {k} from (a)'s step {k - 1}: {out[k]}")
+    return out
+
+
+POWER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_powerlaw"
+# (b) on the power-law graph: (c)'s depth cut
+POWER_CUT = [str(POWER_DIR) if f == str(DATA_DIR) else f for f in EDGE_CUT]
+
+
+def prepare_powerlaw_dir(V, nnz, seed=0):
+    """10(b): a power-law graph of V nodes and nnz edges
+    (`powerlaw_edges`; in-degrees Zipf, so the forward CSR has rows of tens
+    of thousands of edges), random features (128) and labels (15 classes)
+    from the seed, written by prepare_node_disjoint. Returns seconds."""
+    import numpy as np
+    from gmeta_tpu_torch.data.graph import CSRGraph
+    from gmeta_tpu_torch.data.prepare import prepare_node_disjoint
+    t0 = time.time()
+    shutil.rmtree(POWER_DIR, ignore_errors=True)
+    src, dst = powerlaw_edges(V, nnz, seed)
+    rng = np.random.RandomState(seed)
+    prepare_node_disjoint(str(POWER_DIR), [CSRGraph.from_edges(src, dst, V)],
+                          [rng.randn(V, 128).astype(np.float32)],
+                          [rng.randint(0, 15, V)], num_label_set=3,
+                          seed=seed)
+    return time.time() - t0
+
+
 def mesh_phase(device, plain9):
     """Phase 10. Returns (summary, packed launches, rectangular launches,
-    the rectangular entry point's timing)."""
+    combine launches, the rectangular entry point's timing)."""
     import torch
     from gmeta_tpu_torch.parallel.edgepart_train import EdgePartTask
     t0 = time.time()
     packed = {"fwd": 0, "bwd": 0}
     rect = {"fwd": 0, "bwd": 0}
+    combine = {"fwd": 0, "bwd": 0}
+
+    def add(counts, run):
+        for k in counts:
+            counts[k] += run[k]
 
     shutil.rmtree(CKPT10, ignore_errors=True)
 
@@ -1193,8 +1528,7 @@ def mesh_phase(device, plain9):
     # theta after every step is kept for (c)
     a = cli_fit(False, DATA_DIR / "metrics_10a.jsonl", device,
                 extra=["--mesh_tasks", "1"] + every_step(CKPT10 / "a"))
-    for k in packed:
-        packed[k] += a["launches"][k]
+    add(packed, a["launches"])
     a_diff = max_rel(a["theta"], plain9["theta"])
     if a_diff[0] != 0.0:
         assert_theta_close(a["theta"], plain9["theta"], 1e-6, 6, 1e-3,
@@ -1205,47 +1539,73 @@ def mesh_phase(device, plain9):
 
     # (b) the edge-partitioned engine at full width on a world of one
     b, trainer = edge_fit(EDGE_FULL, DATA_DIR / "metrics_10b.jsonl", device)
-    for k in rect:
-        rect[k] += b["csr_launches"][k]
+    add(rect, b["csr_launches"])
+    assert not any(b["combine_launches"].values()), b   # no row is split
     log(f"  (b) --mesh_edges 1, arxiv widths: {b['main_s']:.1f} s, steps "
         f"{[round(x, 3) for x in b['step_s']]} s, warm "
         f"{b.get('warm_tasks_per_s', float('nan')):.2f} tasks/s, peak "
         f"{b['peak_gb']:.2f} GB, csr_gather launches {b['csr_launches']}, "
-        f"comm {b['comm']}")
+        f"comm {b['comm']}; theta sha256 {b['theta_sha256']}")
     train = trainer.tasks["train"]
     first = EdgePartTask(*(a[:trainer.cfg.task_num] for a in train))
     b["profile"] = profile_step(
         lambda: trainer.engine.train_step(first)["meta_loss"])
-    timing, shape = time_rect(trainer.engine._shard.local, device)
+    pair = trainer.engine._shard.local
     del trainer
+    fresh_card()
+    timing, combine_row, shapes = time_rect(pair, device)
+    n_nodes, nnz = pair.row_ptr.numel() - 1, pair.col.numel()
+    del pair
+    fresh_card()
+
+    # (b) on a power-law graph of the same size: its split rows run the
+    # combine kernel; the depth cut as in (c)
+    prep_s = prepare_powerlaw_dir(170_000, nnz)
+    power, _ = edge_fit(POWER_CUT, POWER_DIR / "metrics.jsonl", device)
+    shutil.rmtree(POWER_DIR, ignore_errors=True)
+    add(rect, power["csr_launches"])
+    add(combine, power["combine_launches"])
+    assert power["combine_launches"]["fwd"] > 0, power
+    log(f"  (b) power-law graph (170,000 nodes, {nnz} edges, prepared in "
+        f"{prep_s:.1f} s), --mesh_edges 1, depth cut: {power['main_s']:.1f}"
+        f" s, steps {[round(x, 3) for x in power['step_s']]} s, peak "
+        f"{power['peak_gb']:.2f} GB, csr_gather launches "
+        f"{power['csr_launches']}, combine launches "
+        f"{power['combine_launches']}")
     fresh_card()
 
     # (c) several ranks on this one card over gloo, each its own process
-    packed_argv = ["--preset", "arxiv", "--data_dir", str(DATA_DIR),
-                   "--agg", "sized", "--extractor", "native", "--batchsz",
-                   "192", "--eval_batchsz", "48", "--epoch", "1", "--dtype",
-                   "float32", "--update_step_test", "2", "--metrics_path",
-                   str(DATA_DIR / "metrics_10c.jsonl"), "--mesh_tasks", "4",
-                   *SHARED_CARD, *every_step(CKPT10 / "c")]
-    ranks, wall = spawn_fit(packed_argv, 4, "tasks")
+    packed_flags = ["--preset", "arxiv", "--data_dir", str(DATA_DIR),
+                    "--agg", "sized", "--extractor", "native", "--batchsz",
+                    "192", "--eval_batchsz", "48", "--epoch", "1",
+                    "--dtype", "float32", "--update_step_test", "2"]
+    tasks_argv = packed_flags + [
+        "--metrics_path", str(DATA_DIR / "metrics_10c.jsonl"),
+        "--mesh_tasks", "4", *SHARED_CARD]
+    ranks, wall = spawn_fit(tasks_argv + every_step(CKPT10 / "c"), 4,
+                            "tasks")
     for meta, _ in ranks:
         assert meta["global_step"] == 6, meta
         assert all(v > 0 for v in meta["launches"].values()), meta
-        for k in packed:
-            packed[k] += meta["launches"][k]
+        add(packed, meta["launches"])
     c_steps = compare_steps(CKPT10 / "c", CKPT10 / "a", 1e-3,
                             "10c task-DP vs 10a")
     log(f"  (c) --mesh_tasks 4, 4 gloo ranks: {wall:.1f} s; vs (a): {c_steps}"
         f"; launches by rank "
         f"{[m['launches'] for m, _ in ranks]}; all-reduce s by rank "
         f"{[round(m['seconds']['all_reduce'], 3) for m, _ in ranks]}")
-    c_tasks = {"wall_s": wall, "vs_a": c_steps,
+    # every later step at equal params: resumed from (a)'s checkpoints
+    chunk_argv = packed_flags + [
+        "--metrics_path", str(DATA_DIR / "metrics_10c8.jsonl"),
+        "--task_vmap_chunk", "8"]
+    equal = equal_params_steps(CKPT10 / "a", tasks_argv, chunk_argv,
+                               range(2, 7), 1e-3)
+    c_tasks = {"wall_s": wall, "vs_a": c_steps, "equal_params": equal,
                "ranks": [m for m, _ in ranks]}
 
     one, _ = edge_fit(EDGE_CUT + every_step(CKPT10 / "e1"),
                       DATA_DIR / "metrics_10c1.jsonl", device)
-    for k in rect:
-        rect[k] += one["csr_launches"][k]
+    add(rect, one["csr_launches"])
     ranks, wall = spawn_fit(EDGE_CUT + [
         "--mesh_tasks", "2", "--mesh_edges", "2", "--metrics_path",
         str(DATA_DIR / "metrics_10c2.jsonl"), *SHARED_CARD,
@@ -1254,8 +1614,7 @@ def mesh_phase(device, plain9):
         assert meta["global_step"] == one["result"]["global_step"], meta
         assert all(v > 0 for v in meta["csr_launches"].values()), meta
         assert not any(meta["launches"].values()), meta
-        for k in rect:
-            rect[k] += meta["csr_launches"][k]
+        add(rect, meta["csr_launches"])
     # splitting the graph changes more than the order of a sum: each row
     # aggregates its local and remote edges apart, and the inner steps
     # carry that on, so the JAX engine's own (2, 2) and (1, 1) steps part
@@ -1277,17 +1636,18 @@ def mesh_phase(device, plain9):
         f"{[m['csr_launches'] for m, _ in ranks]}")
     summary = {
         "a": {k: a[k] for k in ("main_s", "warm_tasks_per_s", "tasks_per_s",
-                                "peak_gb", "launches")},
+                                "peak_gb", "launches", "theta_sha256")},
         "a_theta_diff": a_diff,
         "phase9_warm_tasks_per_s": plain9["warm_tasks_per_s"],
         "b": {k: b[k] for k in b if k != "theta"},
+        "b_powerlaw": {k: power[k] for k in power if k != "theta"},
         "c_tasks": c_tasks,
         "c_edges": {"wall_s": wall, "vs_world1": e_steps,
                     "world1_s": one["main_s"],
                     "ranks": [m for m, _ in ranks]},
         "phase_s": time.time() - t0}
     torch.cuda.empty_cache()
-    return summary, packed, rect, (timing, shape)
+    return summary, packed, rect, combine, (timing, combine_row, shapes)
 
 
 def main():
@@ -1368,10 +1728,12 @@ def main():
     torch.cuda.synchronize()
     fit_s = time.time() - t_fit
     main_path = dict(sp.launches)
+    fit_sha256 = theta_digest([p.detach().cpu().numpy()
+                               for p in trainer.learner.params])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"  FitResult {result}")
     log(f"  fit {fit_s:.1f} s; kernel launches {main_path}; peak device "
-        f"memory {peak_gb:.2f} GB")
+        f"memory {peak_gb:.2f} GB; theta sha256 {fit_sha256}")
     steps = [r for r in metrics.records if r["kind"] == "train_step"]
     n_steps = len(tr_ds) // task_num
     assert len(steps) == n_steps and result.global_step == n_steps, steps
@@ -1435,11 +1797,12 @@ def main():
     gc.collect()
 
     t = phase("10 the mesh: task-DP and the edge-partitioned engine")
-    mesh, mesh_launches, rect_launches, (rect, rect_shape) = mesh_phase(
-        device, plain9)
+    (mesh, mesh_launches, rect_launches, combine_launches,
+     (rect, combine_row, rect_shapes)) = mesh_phase(device, plain9)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     log(f"  {time.time() - t:.1f} s; kernel launches of phase 10: packed "
-        f"{mesh_launches}, csr_gather {rect_launches}")
+        f"{mesh_launches}, csr_gather {rect_launches}, combine "
+        f"{combine_launches}")
 
     kernels = []
     for direction, line in (("fwd", 39), ("bwd", 80)):
@@ -1468,7 +1831,7 @@ def main():
             "by_H": {str(H): timing[(direction, H)] for H in (128, 256)},
         })
     for direction in ("fwd", "bwd"):
-        head = rect[(direction, 256)]
+        head = rect[("uniform", direction, 256)]
         kernels.append({
             "name": f"csr_gather_{direction}",
             "route": "cuda",
@@ -1480,12 +1843,30 @@ def main():
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
-            "shape": f"{rect_shape} H=256 float32",
-            "by_H": {str(H): rect[(direction, H)] for H in (128, 256)},
+            "rowwise_ms": head["rowwise_ms"],
+            "shape": f"{rect_shapes['uniform']} H=256 float32",
+            "by_graph_H": {f"{g} {H}": rect[(g, direction, H)]
+                           for g in ("uniform", "powerlaw")
+                           for H in (128, 256)},
+            "powerlaw_shape": rect_shapes["powerlaw"],
         })
+    kernels.append({
+        "name": "csr_combine",
+        "route": "cuda",
+        "source": "gmeta_tpu_torch/csrc/sized_spmm.cu",
+        "replaces": "gmeta_tpu/parallel/edgepart_train.py:129",
+        "launches": sum(combine_launches.values()),
+        "launches_by_direction": combine_launches,
+        **{k: combine_row[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "split_rows", "chunks")},
+        "shape": f"{rect_shapes['powerlaw']} forward, H={combine_row['H']}"
+                 f" float32",
+    })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"slice": {
-        "fit_s": fit_s, "warm_step_s": step_s,
+        "fit_s": fit_s, "fit_theta_sha256": fit_sha256,
+        "warm_step_s": step_s,
         "tasks_per_s": task_num / step_s, "eval_test_s": eval_s,
         "peak_gb": peak_gb, "buckets": buckets, "build_s": build_s,
         "step_compute_s": [r["compute_s"] for r in steps],
@@ -1500,7 +1881,8 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--rank"]:      # one rank of phase 10(c)
-        rank_main(f"{sys.argv[2]}_{os.environ['RANK']}.npz", sys.argv[3:])
+    if sys.argv[1:2] in (["--rank"], ["--one-step-rank"]):  # phase 10(c)
+        rank_main(f"{sys.argv[2]}_{os.environ['RANK']}.npz", sys.argv[3:],
+                  one_step=sys.argv[1] == "--one-step-rank")
     else:
         main()

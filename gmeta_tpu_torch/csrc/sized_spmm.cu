@@ -1,5 +1,5 @@
 // Size-aware block-diagonal aggregation for Hopper (sm_90a): both directions
-// as one gather over an edge list in CSR form.
+// as one gather over an edge list in CSR form, in two bodies.
 //
 // Replaces the two TPU kernel bodies behind the one pallas_call of
 // gmeta_tpu/ops/pallas_spmm.py:
@@ -12,43 +12,79 @@
 // forward) and one by source (the transpose), so one kernel serves both:
 //     out[r, :] = sum over e in [row_ptr[r], row_ptr[r + 1]) of x[col[e], :]
 // A row without edges, such as every dead row (>= n_s) of a packed bin, is
-// written as zeros, which is the TPU kernels' result on packed data.
+// written as zeros, which is the TPU kernels' result on packed data. The
+// same function over a table x of any height is the edge-partitioned
+// engine's segment-sum (an XLA op in gmeta_tpu/parallel/edgepart_train.py).
 //
-// What bounds it on an H100: bytes. A is a 0/1 adjacency that holds 0.25%
-// non-zeros inside the live blocks at the arxiv query batch (N = 2.36 M
-// rows, nnz = 3.9 M, H = 256, float32), so the products the edges need,
-// 2 nnz H = 2 GFLOP, take 0.03 ms at 67 TFLOP/s. The bytes are x's
-// referenced rows read once (about 1.9 GB), the output written once
-// (2.4 GB) and the int32 indices (0.03 GB): about 1.3 ms at 3.35 TB/s
-// (chip_smoke.py prints the bound for its data). Tensor cores and TMA have
-// nothing to do here: there is no dense tile to multiply, and each gathered
-// row is a 16-byte-per-lane load that plain LDG.128 already serves.
+// Which body serves which path, and why:
+// - `csr_gather_kernel` (entry gmeta_sized_spmm) serves the packed sets
+//   (ops/sized_spmm.py `launch`). Each group of lanes gathers one row over
+//   all of H, and the grid walks the rows in order: the blocks in flight
+//   cover a few consecutive bins, whose x rows (1 MB per bin at H = 256
+//   float32) stay in the 50 MB L2 while the bins' edges gather from them,
+//   so x is read from device memory about once.
+// - `csr_slab_kernel` and `csr_combine_kernel` (entries gmeta_csr_slab,
+//   gmeta_csr_combine) serve the rectangular entry point `csr_gather`,
+//   which the edge engine runs over the whole graph. There the row-order
+//   argument fails: one graph's edges name rows anywhere in a table of
+//   V rows (174 MB at V = 170k, H = 256 float32, 3.5x the L2), so most
+//   of the nnz x H row reads missed the L2. The slab body walks the
+//   output slab-major: all rows for columns [0, S), then [S, 2S), ... The
+//   blocks in flight then read one slab of x, V x S x itemsize bytes,
+//   which the wrapper sizes to fit well inside the L2 (S = 32 float32
+//   columns at V = 170k: 128 B per row, 21.8 MB); each slab comes from
+//   device memory about once and the per-edge reads hit the L2. The CSR
+//   is read once per slab, with evict-first loads (__ldcs) so that it
+//   does not push the slab out. An L2 access-policy window does not fit:
+//   it covers one contiguous range, and a column slab is strided.
+// - Rows of power-law graphs are long (a row of 93k edges at V = 170k,
+//   Zipf in-degrees), and one lane group summing such a row edge after
+//   edge is a tail of tens of ms (33-35 ms there, against 0.8 ms for the
+//   rest). Rows of more than `chunk` edges (128) are cut on the host into
+//   chunks of `chunk` edges (ops/sized_spmm.py `row_split`); the slab body
+//   sums each chunk into a float32 scratch row and skips the split row
+//   itself, and the combine body adds each split row's partial sums in
+//   chunk order. Every other row takes the slab path and sums exactly as
+//   csr_gather_kernel does: bitwise the same result.
 //
-// Design (PERF.md has the times of the alternatives named here, from
-// sweep_sized_spmm.py):
-// - G lanes per destination row (G = 32 at H = 256 float32, 16 at H = 128),
-//   lanes across H with 16-byte loads (a float4, or 8 bf16), at most 8
-//   elements per lane per pass over H. Where H is not a multiple of the
-//   vector width (H = 1, 5, 50 are real widths of other presets) or x is not
-//   16-byte aligned, the same code runs on scalars; x is never padded.
+// What bounds them on an H100: bytes. A is a 0/1 adjacency: the products
+// the edges need, 2 nnz H, take 0.03 ms at 67 TFLOP/s on either path. The
+// least bytes are x's referenced rows read once, the output written once
+// and the int32 indices (chip_smoke.py prints the bound for its data). On
+// the full graph the nnz x H x itemsize bytes the edges gather (4.9 GB at
+// H = 256) are 28x that bound; served from the L2, the L2's own rate is
+// the limit. Tensor cores and TMA have nothing to do here: there is no
+// dense tile to multiply, and each gathered row is a 16-byte-per-lane load
+// that plain LDG.128 already serves.
+//
+// Design of both (PERF.md has the times of the alternatives named here,
+// from sweep_sized_spmm.py):
+// - G lanes per row (G = 32 at H = 256 float32, 16 at H = 128; in a slab,
+//   the fewest that cover it), lanes across H with 16-byte loads (a
+//   float4, or 8 bf16), at most 8 elements per lane per pass. Where H is
+//   not a multiple of the vector width (H = 1, 5, 50 are real widths of
+//   other presets) or x is not 16-byte aligned, the same code runs on
+//   scalars; x is never padded.
 // - A group reads its row's two row pointers and its edges' column indices
 //   straight from device memory: every lane of the group reads the same
-//   word, one broadcast load, and a row has about 2 edges at arxiv. Staging
-//   a block's indices in shared memory first (one coalesced read each, two
-//   barriers) was slower, so the kernel uses no shared memory.
-// - The grid walks the rows in order, so the blocks in flight cover a few
-//   consecutive bins, whose x rows (1 MB per bin at H = 256 float32) stay in
-//   the 50 MB L2 while the bins' edges gather from them: x is read from
-//   device memory about once. Output stores are streaming (evict-first),
-//   to keep x in L2; at arxiv a plain store measured the same.
-// - A group sums its row's edges one at a time; the bytes in flight come
-//   from occupancy instead: the launch bounds hold a thread to 32
-//   registers, so 2048 threads fill an SM. Loading two or four edges'
-//   rows at once before summing them was slower, and so was the kernel
-//   without the 32-register cap.
+//   word, one broadcast load. Staging a block's indices in shared memory
+//   first (one coalesced read each, two barriers) was slower on the packed
+//   sets, so neither body uses shared memory.
+// - Output stores are streaming (evict-first), to keep x in L2; at arxiv a
+//   plain store measured the same.
+// - In the packed body a group sums its row's edges one at a time; the
+//   bytes in flight come from occupancy instead: the launch bounds hold a
+//   thread to 32 registers, so 2048 threads fill an SM. Loading two or
+//   four edges' rows at once before summing them was slower there (rows
+//   of about 2 edges), and so was the kernel without the 32-register cap.
+//   The slab body, whose rows have about 28 edges and whose reads hit the
+//   L2, loads 4 edges' vectors before adding them (in edge order) and
+//   takes 64 registers at 1024 threads an SM: 1.09 -> 0.76 ms at H = 256
+//   on an H100, where either alone gained 7-14%.
 // - Sums in float32 registers in edge order; bf16 is widened as it loads
-//   and rounded once as it stores. No atomics, so the result is
-//   deterministic.
+//   and rounded once as it stores; a split row's partial sums stay float32
+//   until the combine rounds them. No atomics, so two launches give the
+//   same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -58,6 +94,8 @@ namespace {
 
 constexpr int THREADS = 256;  // threads per block
 constexpr int MIN_BLOCKS = 2048 / THREADS;  // a full SM: 32 registers
+// The full-graph body's: 64 registers, for its edges loaded 4 at a time
+constexpr int SLAB_MIN_BLOCKS = 4;
 
 // Vectors per lane per pass over H: 8 elements for the 16-byte paths (two
 // float4, one 8 x bf16), which keeps registers at float32's count for bf16.
@@ -65,6 +103,10 @@ template <int VEC>
 __host__ __device__ constexpr int cpl() {
   return VEC == 1 ? 2 : 8 / VEC;
 }
+
+// Vectors per lane per pass of the full-graph body.
+template <int VEC>
+__host__ __device__ constexpr int slab_cpl() { return cpl<VEC>(); }
 
 // Vector load (widened to float32) and streaming store of VEC elements.
 template <typename T, int VEC>
@@ -199,6 +241,155 @@ void launch(const int* row_ptr, const int* col, const void* x, void* out,
     launch_vec<T, 1>(row_ptr, col, x, out, N, H, stream);
 }
 
+// ---- the full-graph bodies: column slabs, heavy rows split ------------------
+
+// Stores VEC float32 partial sums (plain stores: the combine reads them
+// back at once).
+template <int VEC>
+__device__ __forceinline__ void store_partial(float* p, const float (&v)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < VEC; k += 4)
+      *reinterpret_cast<float4*>(p + k) =
+          make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) p[k] = v[k];
+  }
+}
+
+// Work items, slab-major: block b serves slab b / blocks_per_slab. Within
+// a slab, item i < N is output row i (skipped if it has more than `chunk`
+// edges), item N + c is chunk c of a split row, whose sum over the slab's
+// columns goes to partial[c, :].
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS, SLAB_MIN_BLOCKS)
+    csr_slab_kernel(const int* __restrict__ row_ptr,
+                    const int* __restrict__ col, const T* __restrict__ x,
+                    T* __restrict__ out, float* __restrict__ partial,
+                    const int* __restrict__ chunk_row,
+                    const int* __restrict__ chunk_start, int N, int n_chunks,
+                    int H, int slab_v, int G, int chunk, int blocks_per_slab) {
+  constexpr int CPL = slab_cpl<VEC>();
+  const int slab = blockIdx.x / blocks_per_slab;
+  const long long item =
+      (static_cast<long long>(blockIdx.x % blocks_per_slab) * THREADS +
+       threadIdx.x) / G;
+  const int lane = threadIdx.x % G;
+  if (item >= static_cast<long long>(N) + n_chunks) return;
+  int a, b;
+  T* o = nullptr;
+  float* p = nullptr;
+  if (item < N) {
+    a = __ldcs(row_ptr + item);
+    b = __ldcs(row_ptr + item + 1);
+    if (b - a > chunk) return;  // a split row: its chunks sum it
+    o = out + static_cast<size_t>(item) * H;
+  } else {
+    const int c = static_cast<int>(item - N);
+    a = __ldcs(chunk_start + c);
+    const int end = __ldcs(row_ptr + __ldcs(chunk_row + c) + 1);
+    b = end - a > chunk ? a + chunk : end;
+    p = partial + static_cast<size_t>(c) * H;
+  }
+  const int nv = H / VEC;  // vectors per row
+  const int v_end = min(nv, (slab + 1) * slab_v);
+
+  for (int v0 = slab * slab_v; v0 < v_end; v0 += G * CPL) {  // passes
+    float acc[CPL][VEC];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[c][k] = 0.f;
+
+#pragma unroll 4
+    for (int e = a; e < b; ++e) {
+      const T* src = x + static_cast<size_t>(__ldcs(col + e)) * H;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int vi = v0 + c * G + lane;
+        if (vi < v_end) {
+          float v[VEC];
+          Vec<T, VEC>::load(src + static_cast<size_t>(vi) * VEC, v);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) acc[c][k] += v[k];
+        }
+      }
+    }
+
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int vi = v0 + c * G + lane;
+      if (vi < v_end) {
+        if (o != nullptr)
+          Vec<T, VEC>::store(o + static_cast<size_t>(vi) * VEC, acc[c]);
+        else
+          store_partial<VEC>(p + static_cast<size_t>(vi) * VEC, acc[c]);
+      }
+    }
+  }
+}
+
+// out[rows[h], :] = the sum of partial[c, :] over row h's chunks
+// [chunk_ptr[h], chunk_ptr[h + 1]), in chunk order; one block per row.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    csr_combine_kernel(const int* __restrict__ rows,
+                       const int* __restrict__ chunk_ptr,
+                       const float* __restrict__ partial, T* __restrict__ out,
+                       int H) {
+  const int h = blockIdx.x;
+  const int c0 = chunk_ptr[h];
+  const int c1 = chunk_ptr[h + 1];
+  T* o = out + static_cast<size_t>(rows[h]) * H;
+  for (int j = threadIdx.x; j < H; j += THREADS) {
+    float acc[1] = {0.f};
+    for (int c = c0; c < c1; ++c)
+      acc[0] += partial[static_cast<size_t>(c) * H + j];
+    Vec<T, 1>::store(o + j, acc);
+  }
+}
+
+template <typename T, int VEC>
+int launch_slab_vec(const int* row_ptr, const int* col, const void* x,
+                    void* out, float* partial, const int* chunk_row,
+                    const int* chunk_start, int N, int n_chunks, int H,
+                    int slab, int chunk, cudaStream_t stream) {
+  const int nv = H / VEC;
+  int slab_v = slab > 0 ? (slab + VEC - 1) / VEC : nv;  // vectors per slab
+  if (slab_v > nv) slab_v = nv;
+  int G = 1;  // lanes per item: the fewest that cover a slab in cpl vectors
+  while (G < 32 && G * slab_cpl<VEC>() < slab_v) G *= 2;
+  const long long items = static_cast<long long>(N) + n_chunks;
+  const long long per_slab = (items * G + THREADS - 1) / THREADS;
+  const long long blocks = per_slab * ((nv + slab_v - 1) / slab_v);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  csr_slab_kernel<T, VEC><<<static_cast<unsigned>(blocks), THREADS, 0,
+                            stream>>>(
+      row_ptr, col, static_cast<const T*>(x), static_cast<T*>(out), partial,
+      chunk_row, chunk_start, N, n_chunks, H, slab_v, G, chunk,
+      static_cast<int>(per_slab));
+  return 0;
+}
+
+template <typename T>
+int launch_slab(const int* row_ptr, const int* col, const void* x, void* out,
+                float* partial, const int* chunk_row, const int* chunk_start,
+                int N, int n_chunks, int H, int slab, int chunk,
+                cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(partial) % 16 == 0;
+  if (H % VEC == 0 && aligned)
+    return launch_slab_vec<T, VEC>(row_ptr, col, x, out, partial, chunk_row,
+                                   chunk_start, N, n_chunks, H, slab, chunk,
+                                   stream);
+  return launch_slab_vec<T, 1>(row_ptr, col, x, out, partial, chunk_row,
+                               chunk_start, N, n_chunks, H, slab, chunk,
+                               stream);
+}
+
 }  // namespace
 
 // out (N, H) = the CSR (row_ptr (N + 1,), col) times x (N, H), both int32
@@ -217,4 +408,64 @@ extern "C" int gmeta_sized_spmm(const int* row_ptr, const int* col,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The full-graph body: out (N, H) = the CSR (row_ptr (N + 1,), col) times
+// the table x (any rows, H), walked in slabs of `slab` columns (<= 0: all
+// of H). Rows of more than `chunk` edges are not written: their n_chunks
+// chunks (chunk c: edges [chunk_start[c], min(chunk_start[c] + chunk,
+// row_ptr[chunk_row[c] + 1]))) are summed into partial (n_chunks, H)
+// float32, which gmeta_csr_combine then adds up. dtype as gmeta_sized_spmm.
+// Returns cudaGetLastError() after the launch: 0 when it was accepted.
+extern "C" int gmeta_csr_slab(const int* row_ptr, const int* col,
+                              const void* x, void* out, float* partial,
+                              const int* chunk_row, const int* chunk_start,
+                              int N, int n_chunks, int H, int dtype, int slab,
+                              int chunk, void* stream) {
+  if (N > 0 && H > 0 && chunk > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int err;
+    if (dtype == 0)
+      err = launch_slab<float>(row_ptr, col, x, out, partial, chunk_row,
+                               chunk_start, N, n_chunks, H, slab, chunk, st);
+    else if (dtype == 1)
+      err = launch_slab<__nv_bfloat16>(row_ptr, col, x, out, partial,
+                                       chunk_row, chunk_start, N, n_chunks,
+                                       H, slab, chunk, st);
+    else
+      err = static_cast<int>(cudaErrorInvalidValue);
+    if (err != 0) return err;
+  } else if (chunk <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split rows' sums: out[rows[h], :] = sum over c in [chunk_ptr[h],
+// chunk_ptr[h + 1]) of partial[c, :], for h < n_rows, rounded to dtype.
+extern "C" int gmeta_csr_combine(const int* rows, const int* chunk_ptr,
+                                 const float* partial, void* out, int n_rows,
+                                 int H, int dtype, void* stream) {
+  if (n_rows > 0 && H > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (dtype == 0)
+      csr_combine_kernel<float><<<n_rows, THREADS, 0, st>>>(
+          rows, chunk_ptr, partial, static_cast<float*>(out), H);
+    else if (dtype == 1)
+      csr_combine_kernel<__nv_bfloat16><<<n_rows, THREADS, 0, st>>>(
+          rows, chunk_ptr, partial, static_cast<__nv_bfloat16*>(out), H);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The L2 cache's bytes on `device` (slabs are sized to it), or a negative
+// CUDA error.
+extern "C" long long gmeta_l2_bytes(int device) {
+  int v = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&v, cudaDevAttrL2CacheSize, device);
+  return err == cudaSuccess ? static_cast<long long>(v)
+                            : -static_cast<long long>(err);
 }

@@ -16,24 +16,29 @@ directions. The CSRs hold exactly the edges `densify` would add up, so on
 packed data, where no edge touches a dead row, both directions equal the
 full product with dead rows zero (the JAX `sized_reference`).
 
-The same kernel also has a rectangular entry point, `csr_gather`: out
-(len(row_ptr) - 1, H) gathered from a table x of any height, which the
-kernel allows because it bounds only the output rows and reads x through
-`col` alone. The edge-partitioned engine (parallel/edgepart_train.py) runs
-its segment-sums over sorted destinations through it, with the autograd
-pair `CsrAgg`/`CsrAggT` over a `CsrPair` (both CSRs of one edge set).
+The rectangular entry point, `csr_gather`, computes the same function into
+out (len(row_ptr) - 1, H) from a table x of any height, through the
+kernel's full-graph body: slabs of columns sized to the card's L2
+(`slab_width`), and rows of more than `CHUNK` edges cut into chunks whose
+float32 partial sums a second kernel adds up (`row_split`, the plan).
+The edge-partitioned engine (parallel/edgepart_train.py) runs its
+segment-sums over sorted destinations through it, with the autograd pair
+`CsrAgg`/`CsrAggT` over a `CsrPair` (both CSRs of one edge set and their
+plans, built once on the host).
 
 Where each runs is decided by the tensor's device alone: a CPU tensor takes
 the plain PyTorch version (`sized_plain`, `csr_plain`), a CUDA tensor
 launches the kernel, and any other device raises. There is no fallback from
 the kernel to the plain version. `launches` counts the packed path's kernel
-launches per direction and `csr_launches` the rectangular entry point's, so
-a run can show which of its paths went through the kernel.
+launches per direction, `csr_launches` the rectangular entry point's and
+`combine_launches` its combine kernel's, so a run can show which of its
+paths went through which kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -44,9 +49,11 @@ from gmeta_tpu_torch.ops import cuda_build
 # Kernel launches per direction; only a CUDA launch adds to them.
 launches = {"fwd": 0, "bwd": 0}        # packed sets (launch)
 csr_launches = {"fwd": 0, "bwd": 0}    # rectangular tables (csr_gather)
+combine_launches = {"fwd": 0, "bwd": 0}   # csr_gather's split rows
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROWS = 2**31 - 512   # int32 row indices, with a block's overhang
+CHUNK = 128     # csr_gather splits rows of more edges (sweep_sized_spmm.py)
 
 
 class SizedGraph(NamedTuple):
@@ -222,32 +229,190 @@ def _check_rect(row_ptr, col, x):
         raise ValueError("x, row_ptr and col must be contiguous")
 
 
+def slab_width(rows: int, H: int, itemsize: int, l2_size: int) -> int:
+    """Columns per slab of `csr_gather` over a table of `rows` x H
+    elements of `itemsize` bytes: all of H where the table fits in half
+    the L2 (the other half holds the CSR, the output and what other SMs
+    stream), else the widest power of two, from one 32-byte sector up,
+    whose slab (rows x S x itemsize) does."""
+    budget = l2_size // 2
+    if rows * H * itemsize <= budget:
+        return H
+    S = max(1, 32 // itemsize)
+    while 2 * S < H and rows * 2 * S * itemsize <= budget:
+        S *= 2
+    return min(S, H)
+
+
+class RowSplit(NamedTuple):
+    """The heavy-row plan of one CSR: the rows of more than `chunk` edges,
+    each cut into chunks of `chunk` edges (the last may be shorter), in
+    edge order. Chunk c covers edges [chunk_start[c], min(chunk_start[c]
+    + chunk, row_ptr[chunk_row[c] + 1])); split row i owns chunks
+    [chunk_ptr[i], chunk_ptr[i + 1])."""
+    rows: torch.Tensor         # (n_split,) int32, ascending
+    chunk_ptr: torch.Tensor    # (n_split + 1,) int32
+    chunk_row: torch.Tensor    # (n_chunks,) int32
+    chunk_start: torch.Tensor  # (n_chunks,) int32
+    chunk: int
+
+    def to(self, device) -> "RowSplit":
+        return RowSplit(*(t.to(device) for t in self[:4]), self.chunk)
+
+
+def row_split(row_ptr: torch.Tensor, chunk: int = CHUNK) -> RowSplit:
+    """The plan of a CSR's row pointers, on their device (on CUDA it reads
+    the row lengths back to the host once)."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    rows = torch.nonzero(counts > chunk).flatten()
+    per = (counts[rows] + chunk - 1) // chunk
+    chunk_ptr = torch.zeros(rows.numel() + 1, dtype=torch.long,
+                            device=row_ptr.device)
+    torch.cumsum(per, 0, out=chunk_ptr[1:])
+    chunk_row = torch.repeat_interleave(rows, per)
+    k = (torch.arange(chunk_row.numel(), device=row_ptr.device)
+         - torch.repeat_interleave(chunk_ptr[:-1], per))  # chunk within row
+    chunk_start = row_ptr[chunk_row].long() + k * chunk
+    return RowSplit(rows.int(), chunk_ptr.int(), chunk_row.int(),
+                    chunk_start.int(), chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def l2_bytes(device_index: int) -> int:
+    """The L2 cache's bytes of a CUDA device, as the card reports them."""
+    fn = cuda_build.load("sized_spmm").gmeta_l2_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    n = fn(device_index)
+    if n <= 0:
+        raise RuntimeError(f"reading the L2 size of cuda:{device_index} "
+                           f"failed (CUDA error {-n})")
+    return n
+
+
+def _slab_lib():
+    lib = cuda_build.load("sized_spmm")
+    slab, combine = lib.gmeta_csr_slab, lib.gmeta_csr_combine
+    if slab.argtypes is None:
+        slab.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        slab.restype = ctypes.c_int
+        combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        combine.restype = ctypes.c_int
+    return slab, combine
+
+
+def _check_split(split: RowSplit, row_ptr: torch.Tensor):
+    for t in split[:4]:
+        if t.device != row_ptr.device or t.dtype != torch.int32:
+            raise ValueError(f"the row split must be int32 on "
+                             f"{row_ptr.device}, got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("the row split's tensors must be contiguous")
+    if split.rows.shape[0] + 1 != split.chunk_ptr.shape[0]:
+        raise ValueError("the row split's rows and chunk_ptr disagree")
+
+
 def csr_gather(row_ptr: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
-               count: str = "fwd") -> torch.Tensor:
+               count: str = "fwd", split: RowSplit = None) -> torch.Tensor:
     """out (len(row_ptr) - 1, H) = the CSR times the table x (rows, H), on
-    x's device: `csr_plain` on the CPU, the kernel on CUDA, counted in
-    `csr_launches[count]` ("fwd" or "bwd", the direction the caller runs).
-    Every col entry must lie in [0, rows): the kernel does not check it, so
-    `csr_pair` checks that on the host."""
+    x's device: `csr_plain` on the CPU, the full-graph kernel on CUDA,
+    counted in `csr_launches[count]` ("fwd" or "bwd", the direction the
+    caller runs), and where `split` cuts rows, the combine kernel after it,
+    counted in `combine_launches[count]`. `split` is the CSR's `row_split`
+    (built here, with a host sync, when None); the slabs are `slab_width`
+    columns for this table and card. Every col entry must lie in [0,
+    rows): the kernel does not check it, so `csr_pair` checks that on the
+    host."""
     _check_devices(row_ptr, col, x)
     _check_rect(row_ptr, col, x)
     if x.device.type == "cpu":
         return csr_plain(row_ptr, col, x)
-    n_rows = row_ptr.shape[0] - 1
-    out = torch.empty((n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
-    _run_kernel(row_ptr, col, x, out, n_rows, f"csr_gather {count}")
-    csr_launches[count] += 1
+    if split is None:
+        split = row_split(row_ptr)
+    _check_split(split, row_ptr)
+    n_rows, H = row_ptr.shape[0] - 1, x.shape[1]
+    n_chunks = split.chunk_row.shape[0]
+    slab = slab_width(x.shape[0], H, x.element_size(),
+                      l2_bytes(x.device.index or 0))
+    out = torch.empty((n_rows, H), dtype=x.dtype, device=x.device)
+    partial = torch.empty((n_chunks, H), dtype=torch.float32,
+                          device=x.device)
+    body, _ = _slab_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = body(row_ptr.data_ptr(), col.data_ptr(), x.data_ptr(),
+                   out.data_ptr(), partial.data_ptr(),
+                   split.chunk_row.data_ptr(), split.chunk_start.data_ptr(),
+                   n_rows, n_chunks, H, _DTYPE_CODE[x.dtype], slab,
+                   split.chunk, stream)
+        if err != 0:
+            raise RuntimeError(f"csr_gather {count} kernel launch failed "
+                               f"(CUDA error {err}) at N={n_rows} H={H} "
+                               f"{x.dtype} slab={slab}")
+        csr_launches[count] += 1
+    if split.rows.shape[0]:
+        csr_combine(split, partial, out, count)
+    return out
+
+
+def combine_plain(split: RowSplit, partial: torch.Tensor,
+                  out: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the combine kernel: out[split.rows[i]] =
+    the float32 sum of partial[chunk_ptr[i]:chunk_ptr[i + 1]], in out's
+    dtype; other rows of out stay. Returns out."""
+    per = (split.chunk_ptr[1:] - split.chunk_ptr[:-1]).long()
+    owner = torch.repeat_interleave(
+        torch.arange(per.numel(), device=per.device), per)
+    sums = torch.zeros((per.numel(), partial.shape[1]), dtype=torch.float32,
+                       device=partial.device).index_add_(0, owner, partial)
+    out[split.rows.long()] = sums.to(out.dtype)
+    return out
+
+
+def csr_combine(split: RowSplit, partial: torch.Tensor, out: torch.Tensor,
+                count: str = "fwd") -> torch.Tensor:
+    """Write the split rows of out (n_rows, H) from the chunks' float32
+    partial sums (n_chunks, H): `combine_plain` on the CPU, the combine
+    kernel on CUDA, counted in `combine_launches[count]`. Returns out."""
+    if not (partial.device == out.device == split.rows.device):
+        raise ValueError("split, partial and out must share a device")
+    if out.device.type == "cpu":
+        return combine_plain(split, partial, out)
+    if partial.dtype != torch.float32 or out.dtype not in _DTYPE_CODE:
+        raise TypeError(f"partial must be float32 and out float32 or "
+                        f"bfloat16, got {partial.dtype}, {out.dtype}")
+    if partial.shape != (split.chunk_row.shape[0], out.shape[1]) or not (
+            partial.is_contiguous() and out.is_contiguous()):
+        raise ValueError(f"partial {tuple(partial.shape)} does not hold the "
+                         f"split's chunks of out {tuple(out.shape)}")
+    n_split, H = split.rows.shape[0], out.shape[1]
+    _, combine = _slab_lib()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = combine(split.rows.data_ptr(), split.chunk_ptr.data_ptr(),
+                      partial.data_ptr(), out.data_ptr(), n_split, H,
+                      _DTYPE_CODE[out.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"csr_gather {count} combine launch failed (CUDA "
+                           f"error {err}) at {n_split} rows H={H}")
+    combine_launches[count] += 1
     return out
 
 
 class CsrPair(NamedTuple):
-    """One edge set as two CSRs: `row_ptr`/`col` keyed by destination
-    (n_dst rows, columns into a table of n_src rows) and `row_ptr_t`/`col_t`
-    keyed by source (n_src rows, columns into n_dst)."""
+    """One edge set as two CSRs and their heavy-row plans: `row_ptr`/`col`
+    keyed by destination (n_dst rows, columns into a table of n_src rows)
+    and `row_ptr_t`/`col_t` keyed by source (n_src rows, columns into
+    n_dst)."""
     row_ptr: torch.Tensor    # (n_dst + 1,) int32
     col: torch.Tensor        # (nnz,) int32 source rows, in edge order
     row_ptr_t: torch.Tensor  # (n_src + 1,) int32
     col_t: torch.Tensor      # (nnz,) int32 destination rows
+    split: RowSplit          # of row_ptr
+    split_t: RowSplit        # of row_ptr_t
 
     def to(self, device) -> "CsrPair":
         return CsrPair(*(t.to(device) for t in self))
@@ -255,9 +420,9 @@ class CsrPair(NamedTuple):
 
 def csr_pair(src, dst, n_src: int, n_dst: int) -> CsrPair:
     """Host: both CSRs of the edges (src[e] -> dst[e]) (numpy), as int32
-    CPU tensors. A stable sort keeps each row's edges in edge order. Raises
-    where an index lies outside its table, which the kernel does not
-    check."""
+    CPU tensors, with their row splits (`row_split`). A stable sort keeps
+    each row's edges in edge order. Raises where an index lies outside its
+    table, which the kernel does not check."""
     import numpy as np
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
@@ -273,7 +438,10 @@ def csr_pair(src, dst, n_src: int, n_dst: int) -> CsrPair:
         np.cumsum(np.bincount(key, minlength=n), out=row_ptr[1:])
         return (torch.from_numpy(row_ptr.astype(np.int32)),
                 torch.from_numpy(val[order].astype(np.int32)))
-    return CsrPair(*one(dst, src, n_dst), *one(src, dst, n_src))
+    row_ptr, col = one(dst, src, n_dst)
+    row_ptr_t, col_t = one(src, dst, n_src)
+    return CsrPair(row_ptr, col, row_ptr_t, col_t, row_split(row_ptr),
+                   row_split(row_ptr_t))
 
 
 class CsrAgg(torch.autograd.Function):
@@ -284,7 +452,8 @@ class CsrAgg(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pair, x):
         ctx.pair = pair
-        return csr_gather(pair.row_ptr, pair.col, x.contiguous(), "fwd")
+        return csr_gather(pair.row_ptr, pair.col, x.contiguous(), "fwd",
+                          pair.split)
 
     @staticmethod
     def backward(ctx, g):
@@ -297,7 +466,8 @@ class CsrAggT(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pair, g):
         ctx.pair = pair
-        return csr_gather(pair.row_ptr_t, pair.col_t, g.contiguous(), "bwd")
+        return csr_gather(pair.row_ptr_t, pair.col_t, g.contiguous(), "bwd",
+                          pair.split_t)
 
     @staticmethod
     def backward(ctx, g):

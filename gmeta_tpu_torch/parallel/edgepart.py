@@ -13,7 +13,8 @@ The host planning (`shard_graph`, `pad_features`, `build_halo_plan`,
 `build_overlap_plan`) is the JAX package's, in the port's own numpy, with
 bit-equal outputs. On top of it, once per graph on the host, each shard's
 edge sets become CSR pairs (ops/sized_spmm.py `csr_pair`): keyed by local
-destination for the forward, by source for the transpose. The aggregation
+destination for the forward, by source for the transpose, each with its
+heavy-row plan, so the card's launches need no host sync. The aggregation
 `segment_sum(table[src] * mask, dst, num_segments=Vb)` over sorted
 destinations is then one `csr_gather` (the CUDA kernel on the card,
 `csr_plain` on the CPU); pad edges (mask 0) are left out of the CSRs.
@@ -241,7 +242,8 @@ def build_overlap_plan(sg: ShardedGraph, n_shards: int,
 # ---- one shard's operands on its device -------------------------------------
 
 def _live_pair(src, dst, mask, n_src: int, n_dst: int) -> CsrPair:
-    """The CSR pair of a padded (src, dst, mask) edge row, pads left out."""
+    """The CSR pair of a padded (src, dst, mask) edge row, pads left out,
+    with both directions' heavy-row plans."""
     live = np.asarray(mask) != 0
     return csr_pair(np.asarray(src)[live], np.asarray(dst)[live], n_src,
                     n_dst)

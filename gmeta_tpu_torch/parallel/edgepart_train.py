@@ -12,8 +12,9 @@ Counterpart of gmeta_tpu/parallel/edgepart_train.py:
   (OverlapPlan.send_idx) through one all-to-all, started asynchronously;
   the local edges are aggregated while it is in flight, then the engine
   waits and folds in the remote edges. Both aggregations are `csr_gather`
-  over CSR pairs built once on the host (the CUDA kernel on the card,
-  `csr_plain` on the CPU; autograd pair CsrAgg/CsrAggT).
+  over CSR pairs and their heavy-row plans, built once on the host (the
+  CUDA kernels on the card, `csr_plain` on the CPU; autograd pair
+  CsrAgg/CsrAggT).
 - center readout: each shard contributes the embedding rows it owns (zero
   elsewhere) and an all-reduce over the edge group assembles the (S, H)
   center matrix (both endpoints, (S, 2H), for link prediction) on every
@@ -81,9 +82,9 @@ class EdgePartTask(NamedTuple):
 
 class OverlapShard(NamedTuple):
     """Shard d's operands on its device: its feature rows h0 (Vb, F), norm
-    (Vb, 1), the local and remote edges as CSR pairs (local sources are its
-    own rows, remote ones index the (D*M, H) receive table), and its send
-    plan (D, M)."""
+    (Vb, 1), the local and remote edges as CSR pairs with their heavy-row
+    plans (local sources are its own rows, remote ones index the (D*M, H)
+    receive table), and its send plan (D, M)."""
     h0: torch.Tensor
     norm: torch.Tensor
     local: CsrPair

@@ -1,27 +1,46 @@
 #!/usr/bin/env python3
-"""Time design variants of the size-aware aggregation kernel on one NVIDIA
+"""Time design variants of the aggregation kernel's two bodies on one NVIDIA
 GPU.
 
-    python3 sweep_sized_spmm.py
+    python3 sweep_sized_spmm.py [packed|full]     (both when no argument)
 
-Each variant is gmeta_tpu_torch/csrc/sized_spmm.cu with some of its
-constants replaced (blocks per SM in the launch bounds, threads per
-block, the store), compiled by nvcc
-with the port's flags into build/sweep_sized_spmm/ and loaded with ctypes.
-All run the forward CSR of chip_smoke.py's arxiv query batch (its data and
-seed), float32 and bf16, H = 128 and 256. Each is checked against the plain
-version, then timed as the median of 30 launches (CUDA events) beside the
-bytes bound that chip_smoke.py phase 5 computes. Prints one line per
-variant, then the card's name and power limit. Imports nothing of JAX.
+packed: the packed sets' body (csr_gather_kernel). Each variant is
+gmeta_tpu_torch/csrc/sized_spmm.cu with some of its constants replaced
+(blocks per SM in the launch bounds, threads per block, the store),
+compiled by nvcc with the port's flags into build/sweep_sized_spmm/ and
+loaded with ctypes. All run the forward CSR of chip_smoke.py's arxiv query
+batch (its data and seed), float32 and bf16, H = 128 and 256. Each is
+checked against the plain version, then timed as the median of 30 launches
+(CUDA events) beside the bytes bound that chip_smoke.py phase 5 computes.
+
+full: the rectangular entry point `csr_gather` on the two full-graph CSRs
+of chip_smoke.py phase 10: the edge engine's CSR pair of the arxiv-scale
+graph (uniform endpoints, rows of about 28 edges) and a power-law CSR of
+the same V and nnz (`powerlaw_edges`), both directions, float32, H = 128
+and 256. Variants: the row-wise body (`rowwise_gather`, what csr_gather
+ran before its full-graph body), the committed full-graph body at slab
+widths S in {32, 64, 128, H} and split thresholds T in {64, 128, 256,
+1024, 4096}
+(runtime arguments, no rebuild), and variants of that body's constants
+(SLAB_VARIANTS, each built like the packed variants) at S in {32, 64},
+T = the committed `CHUNK`. Each is checked against `csr_plain`, then timed
+as the median of 30 launches beside the bytes bound of chip_smoke.py
+`gather_bound`.
+
+Prints one line per variant, then the card's name and power limit.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import ctypes
 import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-from chip_smoke import HBM_BYTES_S, arxiv_data, card_line, cuda_ms
+from chip_smoke import (HBM_BYTES_S, arxiv_data, card_line, cuda_ms,
+                        gather_bound, powerlaw_edges, rowwise_gather)
 
 VARIANTS = {
     "committed": [],
@@ -39,7 +58,31 @@ VARIANTS = {
 }
 
 
-def build(index, subs):
+# variants of the full-graph body (csr_slab_kernel)
+SLAB_VARIANTS = {
+    "committed": [],
+    "8 blocks per SM (32 registers)": [
+        ("constexpr int SLAB_MIN_BLOCKS = 4;",
+         "constexpr int SLAB_MIN_BLOCKS = 8;")],
+    "edges one at a time": [
+        ("#pragma unroll 4\n    for (int e = a; e < b; ++e) {",
+         "#pragma unroll 1\n    for (int e = a; e < b; ++e) {")],
+    "edges unrolled by 8": [
+        ("#pragma unroll 4\n    for (int e = a; e < b; ++e) {",
+         "#pragma unroll 8\n    for (int e = a; e < b; ++e) {")],
+    "edges unrolled by 2": [
+        ("#pragma unroll 4\n    for (int e = a; e < b; ++e) {",
+         "#pragma unroll 2\n    for (int e = a; e < b; ++e) {")],
+    "3 blocks per SM": [
+        ("constexpr int SLAB_MIN_BLOCKS = 4;",
+         "constexpr int SLAB_MIN_BLOCKS = 3;")],
+    "one vector per lane": [
+        ("constexpr int slab_cpl() { return cpl<VEC>(); }",
+         "constexpr int slab_cpl() { return 1; }")],
+}
+
+
+def build(index, subs, prefix="v"):
     """The variant's library and its ptxas register counts."""
     from gmeta_tpu_torch.ops import cuda_build
     text = (cuda_build.CSRC / "sized_spmm.cu").read_text()
@@ -49,7 +92,7 @@ def build(index, subs):
         text = text.replace(old, new)
     out = Path(__file__).resolve().parent / "build" / "sweep_sized_spmm"
     out.mkdir(parents=True, exist_ok=True)
-    cu, so = out / f"v{index}.cu", out / f"v{index}.so"
+    cu, so = out / f"{prefix}{index}.cu", out / f"{prefix}{index}.so"
     cu.write_text(text)
     r = subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o",
                         str(so), str(cu)], capture_output=True, text=True)
@@ -57,25 +100,22 @@ def build(index, subs):
         raise RuntimeError(f"nvcc failed for variant {index}:\n{r.stderr}")
     regs = [line.split("Used ")[1].split(" registers")[0]
             for line in (r.stdout + r.stderr).splitlines() if "Used " in line]
-    fn = ctypes.CDLL(str(so)).gmeta_sized_spmm
+    lib = ctypes.CDLL(str(so))
+    fn = lib.gmeta_sized_spmm
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, regs
+    return fn, regs, lib
 
 
-def main():
+def sweep_packed():
     import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("sweep_sized_spmm: needs an NVIDIA GPU")
     from gmeta_tpu_torch.config import PRESETS
     from gmeta_tpu_torch.meta.maml import batch_to
     from gmeta_tpu_torch.models.gcn import precompute
     from gmeta_tpu_torch.ops import sized_spmm as sp
-    from gmeta_tpu_torch.utils.device import resolve_device
 
     device = torch.device("cuda", 0)
-    resolve_device(device)
     _, ds = arxiv_data()
     batch = next(ds["train"].batches(PRESETS["arxiv"].task_num,
                                      shuffle=False))
@@ -92,7 +132,7 @@ def main():
     codes = {torch.float32: 0, torch.bfloat16: 1}
     stream = torch.cuda.current_stream().cuda_stream
     for index, (name, subs) in enumerate(VARIANTS.items()):
-        fn, regs = build(index, subs)
+        fn, regs, _ = build(index, subs)
         cells = []
         for (H, dt), x in xs.items():
             out = torch.empty_like(x)
@@ -115,6 +155,122 @@ def main():
             cells.append(f"{str(dt)[6:]} H={H} {ms:.3f} ms ({share:.1f}%)")
         print(f"{name}: registers {'/'.join(regs)}; " + "; ".join(cells),
               flush=True)
+
+
+def full_graph_pairs(device):
+    """The two full-graph CSR pairs of chip_smoke.py phase 10: the edge
+    engine's local pair of the arxiv-scale graph (world of one), and a
+    power-law pair of the same V and nnz."""
+    from gmeta_tpu_torch.data.graph import synthetic_store
+    from gmeta_tpu_torch.ops.sized_spmm import csr_pair
+    from gmeta_tpu_torch.parallel.edgepart import (_live_pair,
+                                                   build_overlap_plan,
+                                                   shard_graph)
+    from gmeta_tpu_torch.run.edgepart import union_graph
+    store, _ = synthetic_store(1, 170_000, 28, 128, 15, seed=7)
+    sg = shard_graph(union_graph(store), 1)
+    plan = build_overlap_plan(sg, 1)
+    uniform = _live_pair(plan.local_src[0], plan.local_dst[0],
+                         plan.local_mask[0], sg.Vb, sg.Vb)
+    V, nnz = sg.Vb, uniform.col.numel()
+    return {"uniform": uniform.to(device),
+            "powerlaw": csr_pair(*powerlaw_edges(V, nnz), V, V).to(device)}
+
+
+def slab_runner(lib):
+    """gather(row_ptr, col, x, split, S) through a library's full-graph
+    body and combine kernel, as `csr_gather` launches them."""
+    import torch
+    body, combine = lib.gmeta_csr_slab, lib.gmeta_csr_combine
+    body.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    body.restype = combine.restype = ctypes.c_int
+
+    def gather(row_ptr, col, x, split, S):
+        n, H = row_ptr.numel() - 1, x.shape[1]
+        out = torch.empty((n, H), device=x.device)
+        partial = torch.empty((split.chunk_row.numel(), H), device=x.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = body(row_ptr.data_ptr(), col.data_ptr(), x.data_ptr(),
+                   out.data_ptr(), partial.data_ptr(),
+                   split.chunk_row.data_ptr(), split.chunk_start.data_ptr(),
+                   n, split.chunk_row.numel(), H, 0, S, split.chunk, stream)
+        if not err and split.rows.numel():
+            err = combine(split.rows.data_ptr(), split.chunk_ptr.data_ptr(),
+                          partial.data_ptr(), out.data_ptr(),
+                          split.rows.numel(), H, 0, stream)
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+        return out
+    return gather
+
+
+def sweep_full():
+    import torch
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    device = torch.device("cuda", 0)
+    g = torch.Generator(device=device).manual_seed(1)
+    l2 = sp.l2_bytes(0)
+    with ThreadPoolExecutor(len(SLAB_VARIANTS)) as pool:   # nvcc at once
+        built = list(pool.map(lambda kv: build(kv[0], kv[1][1], "s"),
+                              enumerate(SLAB_VARIANTS.items())))
+    variants = {}
+    for name, (_, regs, lib) in zip(SLAB_VARIANTS, built):
+        variants[name] = slab_runner(lib)
+        print(f"{name}: registers {'/'.join(regs)}", flush=True)
+    for name, pair in full_graph_pairs(device).items():
+        nnz = pair.col.numel()
+        for count, row_ptr, col, n_in in (
+                ("fwd", pair.row_ptr, pair.col, pair.row_ptr_t.numel() - 1),
+                ("bwd", pair.row_ptr_t, pair.col_t, pair.row_ptr.numel() - 1)):
+            n_out = row_ptr.numel() - 1
+            read_rows = torch.unique(col).numel()
+            longest = int((row_ptr[1:] - row_ptr[:-1]).max())
+            splits = {T: sp.row_split(row_ptr, T)
+                      for T in (64, 128, 256, 1024, 4096)}
+            for H in (128, 256):
+                # small integers: every sum is exact in float32, in any
+                # order, so each variant must equal the plain version
+                x = torch.randint(-8, 9, (n_in, H), device=device,
+                                  generator=g).float()
+                want = sp.csr_plain(row_ptr, col, x)
+                bound = gather_bound(nnz, H, read_rows, n_out)[0]
+                cells = []
+
+                def cell(label, fn):
+                    assert torch.equal(fn(), want), (name, count, H, label)
+                    ms = cuda_ms(fn, iters=30)
+                    cells.append(f"{label} {ms:.3f} ms "
+                                 f"({100 * bound / ms:.1f}%)")
+                cell("row-wise", lambda: rowwise_gather(row_ptr, col, x))
+                for vname, gather in variants.items():
+                    grid = ([(S, T) for T in splits
+                             for S in sorted({32, 64, 128, H})]
+                            if vname == "committed" else
+                            [(32, sp.CHUNK), (64, sp.CHUNK)])
+                    for S, T in grid:
+                        cell(f"{vname} S={S} T={T}", lambda: gather(
+                            row_ptr, col, x, splits[T], S))
+                print(f"{name} {count} H={H} (longest row {longest}, bound "
+                      f"{bound:.4f} ms, slab_width "
+                      f"{sp.slab_width(n_in, H, 4, l2)}): "
+                      + "; ".join(cells), flush=True)
+                del x, want
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("sweep_sized_spmm: needs an NVIDIA GPU")
+    from gmeta_tpu_torch.utils.device import resolve_device
+    resolve_device(torch.device("cuda", 0))
+    which = sys.argv[1:] or ["packed", "full"]
+    if "packed" in which:
+        sweep_packed()
+    if "full" in which:
+        sweep_full()
     print(card_line())
 
 

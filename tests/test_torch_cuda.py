@@ -1,5 +1,6 @@
-"""The CUDA kernel of gmeta_tpu_torch against its plain version (packed
-sets and the rectangular entry point `csr_gather`), the pool modes' device
+"""The CUDA kernels of gmeta_tpu_torch against their plain versions (packed
+sets, and the rectangular entry point `csr_gather`: its full-graph body
+over column slabs, split rows and the combine kernel), the pool modes' device
 decode, pinned window copies and fits, the device extractor, a remat train
 step, the collectives on NCCL and gloo at world size 1, and the launch
 model's refusal of NCCL ranks that share a card.
@@ -322,6 +323,160 @@ def test_csr_agg_backward_and_double_backward_match_plain(cuda):
     r = torch.randint(-8, 9, (600, 16), device=cuda).float()
     g, = torch.autograd.grad((sized_spmm.CsrAgg.apply(pair, t) * r).sum(), t)
     assert torch.equal(g, sized_spmm.csr_plain(pair.row_ptr_t, pair.col_t, r))
+
+
+# ---- the full-graph body: column slabs and split rows -------------------------
+
+def _long_rows(n_src, n_dst, counts, device, seed=0):
+    """A CSR pair of n_dst rows of the given edge counts (cycled), sources
+    drawn with repeats from n_src rows, edges in a shuffled order; rows of
+    more than `CHUNK` (128) edges are split."""
+    rng = np.random.RandomState(seed)
+    counts = np.resize(np.asarray(counts), n_dst)
+    dst = rng.permutation(np.repeat(np.arange(n_dst), counts))
+    src = rng.randint(0, n_src, dst.size)
+    return sized_spmm.csr_pair(src, dst, n_src, n_dst).to(device)
+
+
+def _ints(shape, device, dtype, seed):
+    g = np.random.RandomState(seed)
+    return torch.from_numpy(g.randint(-8, 9, shape).astype(np.float32)).to(
+        device, dtype)
+
+
+def _slabs(monkeypatch, slab):
+    """csr_gather's slab width forced to `slab` columns (None: the card's
+    choice)."""
+    if slab is None:
+        monkeypatch.undo()
+    else:
+        monkeypatch.setattr(sized_spmm, "slab_width", lambda *a: slab)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [1, 5, 50, 128, 256])
+def test_full_graph_body_matches_plain_on_long_rows(cuda, monkeypatch, H,
+                                                    dtype):
+    """Rows of 0, 28, 3,000 and 100,000 edges (split at 128), at the width
+    the card picks and at narrow slabs that do not divide H; small
+    integers, so every sum is exact and the comparison exact."""
+    pair = _long_rows(2000, 9, [0, 28, 3000, 100_000, 28], cuda, seed=H)
+    x = _ints((2000, H), cuda, dtype, seed=H + 1)
+    want = sized_spmm.csr_plain(pair.row_ptr, pair.col, x)
+    for slab in (None, 8, 24, 48):
+        _slabs(monkeypatch, slab)
+        before = dict(sized_spmm.combine_launches)
+        got = sized_spmm.csr_gather(pair.row_ptr, pair.col, x, "fwd",
+                                    pair.split)
+        torch.cuda.synchronize()
+        assert sized_spmm.combine_launches["fwd"] == before["fwd"] + 1
+        assert got.dtype == dtype and torch.equal(got, want), slab
+    # the transpose: rows of about (100,000 + ...) / 2000 edges, unsplit
+    r = _ints((9, H), cuda, dtype, seed=H + 2)
+    got = sized_spmm.csr_gather(pair.row_ptr_t, pair.col_t, r, "bwd",
+                                pair.split_t)
+    assert torch.equal(got, sized_spmm.csr_plain(pair.row_ptr_t,
+                                                 pair.col_t, r))
+
+
+def _rowwise(row_ptr, col, x):
+    """The packed path's body on a rectangular CSR, uncounted."""
+    out = torch.empty((row_ptr.numel() - 1, x.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    sized_spmm._run_kernel(row_ptr, col, x, out, row_ptr.numel() - 1, "")
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [5, 128, 256])
+def test_full_graph_body_bitwise_equals_rowwise_body_and_itself(
+        cuda, monkeypatch, H, dtype):
+    """On random (not integer) inputs: rows that are not split sum in the
+    same order as csr_gather_kernel, so bitwise equal to it at every slab
+    width; two launches give the same bits, split rows included; and in
+    float32 every row lies within rounding of the plain version."""
+    pair = _long_rows(5000, 3000, [28, 0, 200, 3, 1500], cuda, seed=7)
+    g = torch.Generator(device=cuda).manual_seed(H)
+    x = torch.randn(5000, H, device=cuda, generator=g).to(dtype)
+    plain = sized_spmm.csr_plain(pair.row_ptr, pair.col, x)
+    # two float32 sums of a row's n terms, in any orders, differ by at most
+    # 2 (n - 1) 2^-24 sum |x| (the classic bound on each one's error)
+    n = (pair.row_ptr[1:] - pair.row_ptr[:-1]).float()[:, None]
+    bound = 2 * (n - 1).clamp(min=0) * 2.0**-24 * sized_spmm.csr_plain(
+        pair.row_ptr, pair.col, x.float().abs())
+    ref = _rowwise(pair.row_ptr, pair.col, x)
+    split = torch.zeros(3000, dtype=torch.bool, device=cuda)
+    split[pair.split.rows.long()] = True
+    assert split.any() and not split.all()
+    for slab in (None, 8, 32, H):
+        _slabs(monkeypatch, slab)
+        got = sized_spmm.csr_gather(pair.row_ptr, pair.col, x, "fwd",
+                                    pair.split)
+        again = sized_spmm.csr_gather(pair.row_ptr, pair.col, x, "fwd",
+                                      pair.split)
+        assert torch.equal(got, again), slab
+        assert torch.equal(got[~split], ref[~split]), slab
+        if dtype == torch.float32:
+            assert ((got - plain).abs() <= bound).all(), slab
+
+
+def test_full_graph_body_on_misaligned_tables(cuda, monkeypatch):
+    """x 4 bytes off a 16-byte boundary takes the scalar path, with split
+    rows and slabs of 32 columns; the result is the same."""
+    pair = _long_rows(700, 40, [28, 600, 0], cuda, seed=3)
+    x = _ints((700, 128), cuda, torch.float32, seed=4)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    shifted = flat[1:].view(700, 128)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0
+    _slabs(monkeypatch, 32)
+    got = sized_spmm.csr_gather(pair.row_ptr, pair.col, shifted, "fwd",
+                                pair.split)
+    assert torch.equal(got, sized_spmm.csr_plain(pair.row_ptr, pair.col, x))
+
+
+def test_split_rows_backward_and_double_backward_at_narrow_slabs(
+        cuda, monkeypatch):
+    """CsrAgg/CsrAggT through the split and slab paths (slab_width forced
+    to one sector): gradient exact on integers, grad-of-grad close to the
+    plain version's."""
+    monkeypatch.setattr(sized_spmm, "slab_width", lambda *a: 8)
+    pair = _long_rows(900, 600, [28, 700, 3], cuda, seed=5)
+    assert pair.split.rows.numel() > 0
+    x = _ints((900, 16), cuda, torch.float32, seed=6) / 64
+
+    def meta_grad(agg):
+        w0 = torch.tensor(1.0, device=cuda, requires_grad=True)
+        w = w0
+        for _ in range(3):
+            inner = agg(x * w).pow(2).mean()
+            g, = torch.autograd.grad(inner, w, create_graph=True)
+            w = w - 0.1 * g
+        return torch.autograd.grad(agg(x * w).sum(), w0)[0]
+
+    before = dict(sized_spmm.combine_launches)
+    got = meta_grad(lambda t: sized_spmm.CsrAgg.apply(pair, t))
+    assert sized_spmm.combine_launches["fwd"] > before["fwd"]
+    want = meta_grad(lambda t: sized_spmm.csr_plain(pair.row_ptr, pair.col,
+                                                    t))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    # the transpose's gradient is the forward gather, split rows and all
+    t = _ints((600, 16), cuda, torch.float32, seed=7).requires_grad_()
+    r = _ints((900, 16), cuda, torch.float32, seed=8)
+    g, = torch.autograd.grad((sized_spmm.CsrAggT.apply(pair, t) * r).sum(),
+                             t)
+    assert torch.equal(g, sized_spmm.csr_plain(pair.row_ptr, pair.col, r))
+
+
+def test_plan_is_built_when_missing_and_raises_on_a_plan_elsewhere(cuda):
+    pair = _long_rows(300, 20, [400, 5], cuda, seed=9)
+    x = _ints((300, 8), cuda, torch.float32, seed=10)
+    got = sized_spmm.csr_gather(pair.row_ptr, pair.col, x)
+    assert torch.equal(got, sized_spmm.csr_plain(pair.row_ptr, pair.col, x))
+    with pytest.raises(ValueError):
+        sized_spmm.csr_gather(pair.row_ptr, pair.col, x, "fwd",
+                              pair.split.to("cpu"))
+    assert sized_spmm.l2_bytes(x.device.index or 0) >= 1 << 20
 
 
 # ---- the collectives and the launch model on the card -----------------------

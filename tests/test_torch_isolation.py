@@ -1,6 +1,6 @@
 """The port stands alone: neither gmeta_tpu_torch (its multi-rank modules
-included) nor its GPU scripts (chip_smoke.py, sweep_sized_spmm.py) import
-jax, optax or the JAX package, and neither a port train step, resuming
+included) nor its GPU scripts (chip_smoke.py, sweep_sized_spmm.py,
+chip_ab.py) import jax, optax or the JAX package, and neither a port train step, resuming
 from a checkpoint the JAX package wrote, building datasets with the port's
 C++ engine, nor a spawned rank of a mesh loads them (nor the JAX package's
 engine library)."""
@@ -29,7 +29,8 @@ def _imported_roots(path):
 
 def test_no_jax_imports_in_port_sources():
     files = sorted((ROOT / "gmeta_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "sweep_sized_spmm.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "sweep_sized_spmm.py",
+              ROOT / "chip_ab.py"]
     assert len(files) > 15
     names = {str(f.relative_to(ROOT)) for f in files}
     for module in ("mesh", "collectives", "dp", "launch", "edgepart",
