@@ -101,11 +101,33 @@ Phases; any failure raises and the script exits non-zero:
                 theta; the seconds each rank spent in the halo all-to-all
                 and the all-reduces. Gloo between ranks of one card is no
                 measure of scaling across cards.
+  11. parity  — the other presets, from the JAX runs of record.
+                For fold_ppi (Disjoint, 144 graphs, float32), firstmm_db
+                (link prediction, Shared, float32) and tissue_ppi (Shared,
+                task_mode, bf16, as its record ran): the replica made by
+                data/replicas.py under build/chip_smoke_replicas/ (removed
+                after), its graphs.npz held against the byte size in the
+                DATASET marker of parity/<recipe>.ckpt; then
+                run/parity.py's evaluation from that completed checkpoint
+                (a copy), the dual final test on the full test set, with
+                the record's aggregation (dense: torch.bmm) and then with
+                agg="sized" (launch counts set to 0 just before it and
+                read just after; both directions must launch). Each of
+                the four test accuracies within 0.003 (float32) / 0.01
+                (bf16) of the JAX package's CPU evaluation of the same
+                checkpoint (parity_torch/<recipe>.eval_cpu_jax.json),
+                within 0.01 / 0.02 of the TPU record, the sized pass
+                within 0.003 / 0.01 of the dense one. Then entry()'s
+                function on the card against the same function on the
+                CPU from the same params (rtol 1e-5), and
+                dryrun_multichip(4) with its ranks sharing this card over
+                gloo (the edge engine's gathers must launch in them).
 
 Phase 2 builds the CUDA kernels (nvcc) and the host extraction engine (g++)
-at once. Prints the kernels' JSON line (the packed kernel's launches summed
-over phases 7-10 and every rank, the rectangular entry point's and its
-combine kernel's over phase 10), the slice's JSON line (with the modes' warm tasks/s, data_s and peak
+at once. Prints phase 11's parity JSON line, the kernels' JSON line (the
+packed kernel's launches summed over phases 7-11 and every rank, the
+rectangular entry point's and its combine kernel's over phases 10-11),
+the slice's JSON line (with the modes' warm tasks/s, data_s and peak
 device memory under "modes", phase 9's numbers under "cli" and phase 10's
 under "mesh"), the card's name and power limit, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or the JAX package,
@@ -1649,6 +1671,131 @@ def mesh_phase(device, plain9):
     torch.cuda.empty_cache()
     return summary, packed, rect, combine, (timing, combine_row, shapes)
 
+# ---- phase 11: parity from the runs of record's checkpoints; the entry points
+
+REPLICAS = Path(__file__).resolve().parent / "build" / "chip_smoke_replicas"
+RECORDS = Path(__file__).resolve().parent / "parity"
+PARITY_RECIPES = ("fold_ppi", "firstmm_db", "tissue_ppi")
+# absolute bounds on the four test accuracies, (float32, bfloat16): against
+# the JAX package's CPU evaluation of the same checkpoint, against the
+# rounded TPU record, and the sized pass against the record-agg pass
+EVAL_BOUNDS = {"jax_cpu": (0.003, 0.01), "record": (0.01, 0.02),
+               "sized": (0.003, 0.01)}
+BOUNDED = ("test_acc_ref_style", "test_acc_final_step", "best_model_acc",
+           "early_stopped_ref_style")
+
+
+def eval_parity(name, device):
+    """One recipe of phase 11: its replica made here and held against the
+    checkpoint's DATASET marker, then the dual final test from the run of
+    record's completed checkpoint on the full test set, with the record's
+    aggregation and then with agg="sized" (kernel launch counts set to 0
+    just before that pass and read just after it), each held against the
+    JAX package's CPU evaluation of the same checkpoint
+    (parity_torch/<recipe>.eval_cpu_jax.json) and the TPU record."""
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    from gmeta_tpu_torch.run import parity
+    from gmeta_tpu_torch.run.train import build_datasets
+    import torch
+
+    rep_dir, gen_s = parity.replica(name, str(REPLICAS))
+    ckpt_dir = str(RECORDS / f"{name}.ckpt")
+    size = parity.check_replica(rep_dir, ckpt_dir)
+    jax_cpu = parity.jax_cpu_eval(name)
+    assert jax_cpu is not None, f"no JAX CPU evaluation of {name}"
+    rec_agg = parity.record(name)["agg"]
+    assert rec_agg != "sized", rec_agg
+    cfg = parity.eval_config(name, rep_dir)
+    t0 = time.time()
+    store, ds, labels_num = build_datasets(cfg)
+    data_s = time.time() - t0
+    f32 = cfg.dtype == "float32"
+    out = {"dtype": cfg.dtype, "graphs_npz_bytes": size,
+           "replica_gen_s": gen_s, "data_s": data_s,
+           "n_test_tasks": len(ds["test"])}
+    runs = {}
+    for agg in (rec_agg, "sized"):
+        zero_counts()
+        got = parity.eval_checkpoint(dataclasses.replace(cfg, agg=agg), store,
+                                     ds, labels_num, ckpt_dir, device=device)
+        assert got["agg"] == agg and got["n_test_tasks"] == len(ds["test"])
+        launches = dict(sp.launches)
+        if agg == "sized":
+            assert launches["fwd"] > 0 and launches["bwd"] > 0, launches
+        else:
+            assert not any(launches.values()), launches
+        runs[agg] = got
+        d = parity.compare(got, name, jax_cpu)
+        out[agg] = {"acc": got["acc"], **d, "eval_s": got["eval_s"],
+                    "launches": launches}
+        log(f"  {name} {agg}: {json.dumps(got['acc'])}; vs JAX CPU "
+            f"{json.dumps(d['vs_jax_cpu'])}; max per-task diff "
+            f"{d['max_task_diff']:.4f}; {got['eval_s']:.1f} s; "
+            f"launches {launches}")
+    out["sized_vs_dense"] = {k: runs["sized"]["acc"][k]
+                             - runs[rec_agg]["acc"][k] for k in BOUNDED}
+    checks = [(agg, which, out[agg][f"vs_{which}"])
+              for agg in (rec_agg, "sized") for which in ("jax_cpu", "record")]
+    checks.append(("sized", "sized", out["sized_vs_dense"]))
+    out["misses"] = [
+        f"{name} {agg} {k} vs {which}: {diffs[k]:+.4f} (bound {bound})"
+        for agg, which, diffs in checks
+        for bound in [EVAL_BOUNDS[which][0 if f32 else 1]]
+        for k in BOUNDED if abs(diffs[k]) > bound]
+    del store, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def entry_phase(device):
+    """The driver entry points: entry()'s function on the card against the
+    same function on the CPU from the same params, then
+    dryrun_multichip(4) with its ranks sharing this card over gloo."""
+    import torch
+    from gmeta_tpu_torch import entry
+
+    fn, (params, task, feats) = entry.entry(device)
+    got = [x.item() for x in fn(params, task, feats)]
+    _, (_, task_c, feats_c) = entry.entry("cpu")
+    want = [x.item() for x in fn(tuple(p.cpu() for p in params), task_c,
+                                 feats_c)]
+    assert all(math.isfinite(x) for x in got), got
+    err = max(abs(a - b) for a, b in zip(got, want))
+    assert all(math.isclose(a, b, rel_tol=1e-5, abs_tol=1e-6)
+               for a, b in zip(got, want)), (got, want)
+    log(f"  entry(): card {got}, cpu {want}")
+    t0 = time.time()
+    dry = entry.dryrun_multichip(4, device, timeout=300.0)
+    assert dry["backend"] == "gloo" and dry["loaded"] == [], dry
+    csr = dry["launches"]["csr"]
+    assert csr["fwd"] > 0 and csr["bwd"] > 0, dry["launches"]
+    dry["wall_s"] = time.time() - t0
+    torch.cuda.empty_cache()
+    return {"card": got, "cpu": want, "max_abs_diff": err}, dry
+
+
+def parity_phase(device):
+    """Phase 11: evaluation parity for the three recipes with completed
+    checkpoints, then the entry points. Returns the phase's summary and
+    its kernel launches (the sized passes' and the dry run's ranks')."""
+    t0 = time.time()
+    shutil.rmtree(REPLICAS, ignore_errors=True)
+    try:
+        recipes = {name: eval_parity(name, device) for name in PARITY_RECIPES}
+    finally:
+        shutil.rmtree(REPLICAS, ignore_errors=True)
+    misses = [m for r in recipes.values() for m in r["misses"]]
+    if misses:
+        raise AssertionError("evaluation parity out of bounds:\n  "
+                             + "\n  ".join(misses))
+    ent, dry = entry_phase(device)
+    packed = {d: sum(r["sized"]["launches"][d] for r in recipes.values())
+              for d in ("fwd", "bwd")}
+    summary = {"recipes": recipes, "entry": ent, "dryrun_multichip": dry,
+               "bounds": EVAL_BOUNDS, "phase_s": time.time() - t0}
+    return summary, packed, dry["launches"]
+
 
 def main():
     import torch
@@ -1804,6 +1951,13 @@ def main():
         f"{mesh_launches}, csr_gather {rect_launches}, combine "
         f"{combine_launches}")
 
+    t = phase("11 parity: evaluation from the runs of record's checkpoints;"
+              " the entry points")
+    parity11, packed11, dry11 = parity_phase(device)
+    log(f"  {time.time() - t:.1f} s; kernel launches of phase 11: packed "
+        f"{packed11}, the dry run's ranks {dry11}")
+    log(json.dumps({"parity": parity11}))
+
     kernels = []
     for direction, line in (("fwd", 39), ("bwd", 80)):
         head = timing[(direction, 256)]
@@ -1814,11 +1968,15 @@ def main():
             "replaces": f"gmeta_tpu/ops/pallas_spmm.py:{line}",
             "launches": (main_path[direction] + mode_launches[direction]
                          + cli_launches[direction]
-                         + mesh_launches[direction]),
+                         + mesh_launches[direction]
+                         + packed11[direction]
+                         + dry11["packed"][direction]),
             "launches_by_phase": {"7": main_path[direction],
                                   "8": mode_launches[direction],
                                   "9": cli_launches[direction],
-                                  "10": mesh_launches[direction]},
+                                  "10": mesh_launches[direction],
+                                  "11": packed11[direction]
+                                  + dry11["packed"][direction]},
             "max_abs_err": max(errs[direction]["float32"],
                                head["max_abs_err"]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -1838,7 +1996,9 @@ def main():
             "source": "gmeta_tpu_torch/csrc/sized_spmm.cu",
             # the edge engine's segment-sum, an XLA op in the JAX package
             "replaces": "gmeta_tpu/parallel/edgepart_train.py:129",
-            "launches": rect_launches[direction],
+            "launches": rect_launches[direction] + dry11["csr"][direction],
+            "launches_by_phase": {"10": rect_launches[direction],
+                                  "11": dry11["csr"][direction]},
             "max_abs_err": head["max_abs_err"],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1855,8 +2015,10 @@ def main():
         "route": "cuda",
         "source": "gmeta_tpu_torch/csrc/sized_spmm.cu",
         "replaces": "gmeta_tpu/parallel/edgepart_train.py:129",
-        "launches": sum(combine_launches.values()),
+        "launches": (sum(combine_launches.values())
+                     + sum(dry11["combine"].values())),
         "launches_by_direction": combine_launches,
+        "launches_phase_11": dry11["combine"],
         **{k: combine_row[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "split_rows", "chunks")},

@@ -147,14 +147,16 @@ def forward(params, sg: SubgraphSet, feats: torch.Tensor,
             layer_spec: Sequence[Tuple[str, tuple]],
             graph: GraphOperands = None,
             compute_dtype=torch.float32,
-            agg: str = "dense") -> torch.Tensor:
+            agg: str = "dense", collect: list = None) -> torch.Tensor:
     """Logits (T, S, out), float32, for a batch of packed subgraph sets.
 
     `agg` selects the aggregation: "dense" is a batched matmul over full
     (P, P) blocks; "sized" is the size-aware aggregation over the edge lists
     (ops/sized_spmm), which on a CUDA tensor launches the hand-written
     kernel and on a CPU tensor runs its plain version — the tensor's device
-    decides, nothing else. `graph` is `precompute(sg, ..., agg=agg)`."""
+    decides, nothing else. `graph` is `precompute(sg, ..., agg=agg)`.
+    `collect`, a list, receives each GraphConv layer's (T, B, P, out)
+    activations (the per-layer oracle check of run/parity.py)."""
     link_pred = layer_spec[-1][0] == "LinkPred"
     T, B, P = sg.node_gid.shape
 
@@ -188,6 +190,8 @@ def forward(params, sg: SubgraphSet, feats: torch.Tensor,
             h = _aggregate(h.reshape(T * B, P, fan_in)).to(compute_dtype)
             h = _matmul(h.reshape(T, B * P, fan_in), w, compute_dtype)
         h = torch.relu(h.reshape(T, B, P, fan_out) * norm + _bias(b, 4))
+        if collect is not None:
+            collect.append(h)
         if li == len(gcn_layers) - 1:
             # center readout: flat slots bin*P + i index each task's own
             # (B*P, H) rows

@@ -8,14 +8,16 @@ restores the exact protocol state; data order needs no RNG blob, because
 the epoch's task order is a pure function of (config seed, epoch) and the
 saved in-epoch position pins the remaining stream.
 
-Format: a pickle of numpy leaves (tensors as `.detach().cpu().numpy()`).
-The port writes its Adam state as a dict of `AdamState`'s fields
-{"count", "mu", "nu"}. `restore` reads that and also a checkpoint the JAX
-package wrote, whose `opt_state` is optax.adam's pickled state
-`(ScaleByAdamState(count, mu, nu), EmptyState())`: a restricted unpickler
-maps those two optax classes to plain local ones, so neither optax nor jax
-is imported, and returns `opt_state` in the port's layout either way. The
-JAX package cannot read the port's checkpoints.
+Format: a pickle of numpy leaves (tensors as `.detach().cpu().numpy()`),
+the JAX package's format: `opt_state` is written as optax.adam's pickled
+state, `(ScaleByAdamState(count, mu, nu), EmptyState())`, under optax's
+module and class names, so that the JAX package resumes a checkpoint the
+port wrote. Neither optax nor jax is imported for it: local stand-ins
+(`_ScaleByAdamState`, `_EmptyState`) are pickled under optax's names by a
+pure-Python pickler. `restore` reads that layout, through a restricted
+unpickler that maps optax's two classes back to the stand-ins, and also
+the dict of `AdamState`'s fields {"count", "mu", "nu"} that the port
+wrote before; it returns `opt_state` in the port's layout either way.
 """
 
 from __future__ import annotations
@@ -32,7 +34,9 @@ def _to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # AdamState
-        return {k: _to_numpy(v) for k, v in zip(tree._fields, tree)}
+        adam = _ScaleByAdamState(*(_to_numpy(getattr(tree, k))
+                                   for k in ("count", "mu", "nu")))
+        return (adam, _EmptyState())                 # optax.adam's state
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
@@ -45,7 +49,7 @@ def save(ckpt_dir: str, step: int, state: Dict[str, Any]) -> str:
     path = os.path.join(ckpt_dir, f"ckpt_{step:08d}.pkl")
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        pickle.dump(_to_numpy(state), f, protocol=pickle.HIGHEST_PROTOCOL)
+        _Pickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(_to_numpy(state))
     os.replace(tmp, path)
     latest = os.path.join(ckpt_dir, "latest")
     tmp_link = latest + ".tmp"
@@ -78,6 +82,25 @@ class _EmptyState(NamedTuple):
 
 _OPTAX = {("optax._src.transform", "ScaleByAdamState"): _ScaleByAdamState,
           ("optax._src.base", "EmptyState"): _EmptyState}
+_OPTAX_NAMES = {cls: key for key, cls in _OPTAX.items()}
+
+
+class _Pickler(pickle._Pickler):
+    """Writes the stand-ins under optax's module and class names, as
+    optax's own classes pickle; everything else as pickle does. The
+    pure-Python pickler, because the C one resolves every class it writes
+    by importing its module."""
+
+    def save_global(self, obj, name=None):
+        if obj not in _OPTAX_NAMES:
+            return super().save_global(obj, name)
+        module, qualname = _OPTAX_NAMES[obj]
+        self.save(module)
+        self.save(qualname)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
 # what numpy arrays, dtypes and scalars pickle through (numpy 1.x and 2.x)
 _NUMPY_MODULES = ("numpy", "numpy.core.multiarray", "numpy._core.multiarray",
                   "numpy.core.numeric", "numpy._core.numeric")
@@ -98,7 +121,8 @@ class _Unpickler(pickle.Unpickler):
 
 
 def _adam_fields(opt_state) -> Dict[str, Any]:
-    """{"count", "mu", "nu"} from either package's Adam state."""
+    """{"count", "mu", "nu"} from optax's layout or the port's former
+    dict."""
     if isinstance(opt_state, dict):
         return opt_state
     adam = opt_state[0] if isinstance(opt_state, tuple) and opt_state else None

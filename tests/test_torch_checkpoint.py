@@ -1,7 +1,8 @@
 """Checkpoint/resume in the port (gmeta_tpu_torch.utils.checkpoint and
 run.train): the file layout, reading the JAX package's checkpoints, epoch
 and mid-epoch resume in the three execution modes against the straight
-run, and a JAX run resumed by the port against the JAX straight run."""
+run, a JAX run resumed by the port and a port run resumed by the JAX
+package, each against the JAX straight run."""
 
 import dataclasses
 import os
@@ -18,6 +19,7 @@ from gmeta_tpu.data.synthetic import synthetic_disjoint as j_synthetic
 from gmeta_tpu.run.train import Trainer as JTrainer
 from gmeta_tpu.utils import checkpoint as jckpt
 from gmeta_tpu_torch.config import Config
+from gmeta_tpu_torch.convert import params_from_jax
 from gmeta_tpu_torch.data.synthetic import synthetic_disjoint
 from gmeta_tpu_torch.meta.maml import AdamState
 from gmeta_tpu_torch.run.train import Trainer
@@ -245,3 +247,86 @@ def test_port_resumes_a_jax_run(tmp_path):
         else:
             np.testing.assert_allclose(b, a, rtol=1e-4, atol=2e-5,
                                        err_msg=f"param {i}")
+
+
+def test_jax_resumes_a_port_run(tmp_path):
+    """Epoch 1 by the port's Trainer with a checkpoint (optax's layout,
+    written without optax), epoch 2 by the JAX Trainer from that
+    checkpoint: the result of the JAX straight run."""
+    jstore, jds = j_synthetic(**DATA)
+    jcfg = JConfig(**CFG)
+    jfull = JTrainer(jcfg, jstore, jds, labels_num=3)
+    jres = jfull.fit()
+    # the port starts from the JAX run's initial theta
+    init = [np.asarray(p) for p in
+            JTrainer(jcfg, jstore, jds, labels_num=3).learner.params]
+
+    ck = str(tmp_path / "ck")
+    store, ds = synthetic_disjoint(**DATA)
+    p1 = Trainer(Config(**dict(CFG, epoch=1), checkpoint_dir=ck), store, ds,
+                 labels_num=3, device="cpu")
+    p1.learner.set_params(params_from_jax(init))
+    p1.best_params = p1.learner.snapshot()
+    p1.fit()
+    after1 = _params(p1)
+    with open(ckpt.latest_path(ck), "rb") as f:
+        state = pickle.load(f)          # optax importable here
+    assert isinstance(state["opt_state"][0], optax.ScaleByAdamState)
+    assert isinstance(state["opt_state"][1], optax.EmptyState)
+    assert state["opt_state"][0].count.dtype == np.int32
+
+    jr = JTrainer(dataclasses.replace(jcfg, checkpoint_dir=ck), jstore, jds,
+                  labels_num=3)
+    assert (jr.start_epoch, jr.start_batch, jr.global_step) == (1, 0, 3)
+    assert int(jr.learner.opt_state[0].count) == 3
+    res = jr.fit()
+    assert res.epochs_run == 1 and res.global_step == jres.global_step == 6
+    for f in ("test_acc_ref", "test_acc_final", "best_test_acc",
+              "early_stopped_ref", "val_max_acc"):
+        np.testing.assert_allclose(getattr(res, f), getattr(jres, f),
+                                   atol=1e-6, err_msg=f)
+    # every parameter but the head bias (see test_port_resumes_a_jax_run)
+    for i, (a, b) in enumerate(zip(jfull.learner.params, jr.learner.params)):
+        a, b = np.asarray(a), np.asarray(b)
+        if i == len(after1) - 1:
+            assert np.abs(b - after1[i]).max() <= 3 * CFG["meta_lr"] * 1.001
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-4, atol=2e-5,
+                                       err_msg=f"param {i}")
+
+
+def test_save_writes_optax_layout_without_optax(tmp_path):
+    """The pickle names optax's classes, and restoring it maps them back
+    without importing optax (tests/test_torch_isolation.py runs a resume
+    in a fresh process)."""
+    params, mu, nu = _state(np.random.RandomState(2))
+    opt = AdamState(count=torch.tensor(4, dtype=torch.int32),
+                    mu=tuple(map(torch.from_numpy, mu)),
+                    nu=tuple(map(torch.from_numpy, nu)))
+    path = ckpt.save(str(tmp_path), 4, dict(
+        _fields(step=4), params=tuple(map(torch.from_numpy, params)),
+        opt_state=opt, best_params=tuple(map(torch.from_numpy, params))))
+    import pickletools
+    with open(path, "rb") as f:
+        ops = [(op.name, arg) for op, arg, _ in pickletools.genops(f)]
+    strings = [a for name, a in ops if isinstance(a, str)]
+    for module, cls in (("optax._src.transform", "ScaleByAdamState"),
+                        ("optax._src.base", "EmptyState")):
+        i = strings.index(module)
+        assert strings[i + 1] == cls
+    state = ckpt.restore(path)
+    o = state["opt_state"]
+    assert set(o) == {"count", "mu", "nu"} and int(o["count"]) == 4
+    for a, b in zip(o["mu"] + o["nu"], mu + nu):
+        np.testing.assert_array_equal(a, b)
+    # a checkpoint of the port's former layout (a dict) still restores
+    old = tmp_path / "old" / "ckpt_00000001.pkl"
+    old.parent.mkdir()
+    with open(old, "wb") as f:
+        pickle.dump(dict(_fields(step=1), params=params, best_params=params,
+                         opt_state={"count": np.int32(1), "mu": mu,
+                                    "nu": nu}), f)
+    o = ckpt.restore(str(old))["opt_state"]
+    assert int(o["count"]) == 1
+    for a, b in zip(o["mu"] + o["nu"], mu + nu):
+        np.testing.assert_array_equal(a, b)

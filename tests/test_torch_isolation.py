@@ -1,9 +1,11 @@
-"""The port stands alone: neither gmeta_tpu_torch (its multi-rank modules
-included) nor its GPU scripts (chip_smoke.py, sweep_sized_spmm.py,
-chip_ab.py) import jax, optax or the JAX package, and neither a port train step, resuming
-from a checkpoint the JAX package wrote, building datasets with the port's
-C++ engine, nor a spawned rank of a mesh loads them (nor the JAX package's
-engine library)."""
+"""The port stands alone: neither gmeta_tpu_torch (its multi-rank modules,
+replicas, parity runner and entry points included) nor its GPU scripts
+(chip_smoke.py, sweep_sized_spmm.py, chip_ab.py) import jax, optax or the
+JAX package, and neither a port train step, resuming from a checkpoint the
+JAX package wrote, building datasets with the port's C++ engine, a spawned
+rank of a mesh, the parity runner's evaluation from a run of record's
+checkpoint, nor a rank of `dryrun_multichip` loads them (nor the JAX
+package's engine library)."""
 
 import ast
 import os
@@ -37,6 +39,8 @@ def test_no_jax_imports_in_port_sources():
                    "edgepart_train"):
         assert f"gmeta_tpu_torch/parallel/{module}.py" in names
     assert "gmeta_tpu_torch/run/edgepart.py" in names
+    for module in ("data/replicas.py", "run/parity.py", "entry.py"):
+        assert f"gmeta_tpu_torch/{module}" in names
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -163,3 +167,33 @@ def test_spawned_ranks_load_no_jax(tmp_path):
     for out in outs:
         assert out["loaded"].size == 0, out["loaded"]
         assert np.isfinite(out["loss"])
+
+
+EVAL_FROM = """
+import sys
+from gmeta_tpu_torch.run import parity
+out, = parity.main(["firstmm_db", "--eval_from", "parity/firstmm_db.ckpt",
+                    "--device", "cpu", "--replicas", sys.argv[1],
+                    "--out", sys.argv[2], "--batchsz", "8",
+                    "--eval_batchsz", "2"])
+assert out["agg"] == "dense" and out["n_test_tasks"] == 2, out
+loaded = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "optax", "gmeta_tpu"))
+print("LOADED", loaded)
+"""
+
+
+def test_eval_from_loads_no_jax(tmp_path):
+    """The parity runner's --eval_from (a firstmm_db replica made by the
+    port, a copy of the run of record's checkpoint, the dual final test
+    on 2 tasks) loads neither jax, optax nor gmeta_tpu."""
+    _run(EVAL_FROM.replace("sys.argv[1]", repr(str(tmp_path / "rep")))
+         .replace("sys.argv[2]", repr(str(tmp_path / "out"))))
+
+
+def test_dryrun_ranks_load_no_jax():
+    """Each rank of the entry points' dry run, a fresh interpreter, loads
+    neither jax, optax nor gmeta_tpu."""
+    from gmeta_tpu_torch.entry import dryrun_multichip
+    out = dryrun_multichip(2, device="cpu", timeout=180.0)
+    assert out["ranks"] == 2 and out["loaded"] == []
