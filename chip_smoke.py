@@ -117,11 +117,14 @@ Phases; any failure raises and the script exits non-zero:
                 (bf16) of the JAX package's CPU evaluation of the same
                 checkpoint (parity_torch/<recipe>.eval_cpu_jax.json),
                 within 0.01 / 0.02 of the TPU record, the sized pass
-                within 0.003 / 0.01 of the dense one. Then entry()'s
-                function on the card against the same function on the
-                CPU from the same params (rtol 1e-5), and
-                dryrun_multichip(4) with its ranks sharing this card over
-                gloo (the edge engine's gathers must launch in them).
+                within 0.003 / 0.01 of the dense one, and every per-task
+                curve within one query of the JAX CPU evaluation's and,
+                for the sized pass, of the dense pass's (run/parity.py
+                EVAL_BOUNDS). Then entry()'s function on the card against
+                the same function on the CPU from the same params (rtol
+                1e-5), and dryrun_multichip(4) called with no device, as
+                a user calls it: its ranks share this card over gloo (the
+                edge engine's gathers must launch in them).
 
 Phase 2 builds the CUDA kernels (nvcc) and the host extraction engine (g++)
 at once. Prints phase 11's parity JSON line, the kernels' JSON line (the
@@ -1676,73 +1679,42 @@ def mesh_phase(device, plain9):
 REPLICAS = Path(__file__).resolve().parent / "build" / "chip_smoke_replicas"
 RECORDS = Path(__file__).resolve().parent / "parity"
 PARITY_RECIPES = ("fold_ppi", "firstmm_db", "tissue_ppi")
-# absolute bounds on the four test accuracies, (float32, bfloat16): against
-# the JAX package's CPU evaluation of the same checkpoint, against the
-# rounded TPU record, and the sized pass against the record-agg pass
-EVAL_BOUNDS = {"jax_cpu": (0.003, 0.01), "record": (0.01, 0.02),
-               "sized": (0.003, 0.01)}
-BOUNDED = ("test_acc_ref_style", "test_acc_final_step", "best_model_acc",
-           "early_stopped_ref_style")
 
 
 def eval_parity(name, device):
-    """One recipe of phase 11: its replica made here and held against the
-    checkpoint's DATASET marker, then the dual final test from the run of
-    record's completed checkpoint on the full test set, with the record's
-    aggregation and then with agg="sized" (kernel launch counts set to 0
-    just before that pass and read just after it), each held against the
-    JAX package's CPU evaluation of the same checkpoint
-    (parity_torch/<recipe>.eval_cpu_jax.json) and the TPU record."""
+    """One recipe of phase 11 through the runner's `eval_from`: its replica
+    made here and held against the checkpoint's DATASET marker, then the
+    dual final test from the run of record's completed checkpoint on the
+    full test set, with the record's aggregation and then with
+    agg="sized", held at the runner's EVAL_BOUNDS against the JAX
+    package's CPU evaluation of the same checkpoint
+    (parity_torch/<recipe>.eval_cpu_jax.json), the TPU record and each
+    other. Kernel launch counts are set to 0 just before and read just
+    after; only the sized pass may launch, and it must launch both
+    directions."""
     from gmeta_tpu_torch.ops import sized_spmm as sp
     from gmeta_tpu_torch.run import parity
-    from gmeta_tpu_torch.run.train import build_datasets
     import torch
 
-    rep_dir, gen_s = parity.replica(name, str(REPLICAS))
-    ckpt_dir = str(RECORDS / f"{name}.ckpt")
-    size = parity.check_replica(rep_dir, ckpt_dir)
-    jax_cpu = parity.jax_cpu_eval(name)
-    assert jax_cpu is not None, f"no JAX CPU evaluation of {name}"
     rec_agg = parity.record(name)["agg"]
     assert rec_agg != "sized", rec_agg
-    cfg = parity.eval_config(name, rep_dir)
-    t0 = time.time()
-    store, ds, labels_num = build_datasets(cfg)
-    data_s = time.time() - t0
-    f32 = cfg.dtype == "float32"
-    out = {"dtype": cfg.dtype, "graphs_npz_bytes": size,
-           "replica_gen_s": gen_s, "data_s": data_s,
-           "n_test_tasks": len(ds["test"])}
-    runs = {}
-    for agg in (rec_agg, "sized"):
-        zero_counts()
-        got = parity.eval_checkpoint(dataclasses.replace(cfg, agg=agg), store,
-                                     ds, labels_num, ckpt_dir, device=device)
-        assert got["agg"] == agg and got["n_test_tasks"] == len(ds["test"])
-        launches = dict(sp.launches)
-        if agg == "sized":
-            assert launches["fwd"] > 0 and launches["bwd"] > 0, launches
-        else:
-            assert not any(launches.values()), launches
-        runs[agg] = got
-        d = parity.compare(got, name, jax_cpu)
-        out[agg] = {"acc": got["acc"], **d, "eval_s": got["eval_s"],
-                    "launches": launches}
-        log(f"  {name} {agg}: {json.dumps(got['acc'])}; vs JAX CPU "
-            f"{json.dumps(d['vs_jax_cpu'])}; max per-task diff "
-            f"{d['max_task_diff']:.4f}; {got['eval_s']:.1f} s; "
-            f"launches {launches}")
-    out["sized_vs_dense"] = {k: runs["sized"]["acc"][k]
-                             - runs[rec_agg]["acc"][k] for k in BOUNDED}
-    checks = [(agg, which, out[agg][f"vs_{which}"])
-              for agg in (rec_agg, "sized") for which in ("jax_cpu", "record")]
-    checks.append(("sized", "sized", out["sized_vs_dense"]))
-    out["misses"] = [
-        f"{name} {agg} {k} vs {which}: {diffs[k]:+.4f} (bound {bound})"
-        for agg, which, diffs in checks
-        for bound in [EVAL_BOUNDS[which][0 if f32 else 1]]
-        for k in BOUNDED if abs(diffs[k]) > bound]
-    del store, ds
+    zero_counts()
+    out = parity.eval_from(name, str(RECORDS / f"{name}.ckpt"),
+                           str(REPLICAS), device=device)
+    launches = dict(sp.launches)
+    assert out["checked"] and out["jax_cpu_acc"] is not None, out["recipe"]
+    assert list(out["passes"]) == [rec_agg, "sized"], list(out["passes"])
+    assert not any(out["passes"][rec_agg]["launches"].values()), out
+    assert launches == out["passes"]["sized"]["launches"], launches
+    assert launches["fwd"] > 0 and launches["bwd"] > 0, launches
+    for agg, res in out["passes"].items():
+        assert res["agg"] == agg, res["agg"]
+        log(f"  {name} {agg}: {json.dumps(res['acc'])}; vs JAX CPU "
+            f"{json.dumps(res['vs_jax_cpu'])}; max per-task diff "
+            f"{res['max_task_diff']:.4f} (one query "
+            f"{out['one_query']:.4f}); {res['eval_s']:.1f} s; "
+            f"launches {res['launches']}")
+        del res["curves_last"], res["curves_best"]
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -1751,7 +1723,8 @@ def eval_parity(name, device):
 def entry_phase(device):
     """The driver entry points: entry()'s function on the card against the
     same function on the CPU from the same params, then
-    dryrun_multichip(4) with its ranks sharing this card over gloo."""
+    dryrun_multichip(4) as a user calls it, with no device named: its
+    ranks share this card over gloo."""
     import torch
     from gmeta_tpu_torch import entry
 
@@ -1766,8 +1739,9 @@ def entry_phase(device):
                for a, b in zip(got, want)), (got, want)
     log(f"  entry(): card {got}, cpu {want}")
     t0 = time.time()
-    dry = entry.dryrun_multichip(4, device, timeout=300.0)
+    dry = entry.dryrun_multichip(4, timeout=300.0)
     assert dry["backend"] == "gloo" and dry["loaded"] == [], dry
+    assert dry["device"] == f"cuda:{device.index or 0}", dry["device"]
     csr = dry["launches"]["csr"]
     assert csr["fwd"] > 0 and csr["bwd"] > 0, dry["launches"]
     dry["wall_s"] = time.time() - t0
@@ -1790,10 +1764,11 @@ def parity_phase(device):
         raise AssertionError("evaluation parity out of bounds:\n  "
                              + "\n  ".join(misses))
     ent, dry = entry_phase(device)
-    packed = {d: sum(r["sized"]["launches"][d] for r in recipes.values())
+    packed = {d: sum(r["passes"]["sized"]["launches"][d]
+                     for r in recipes.values())
               for d in ("fwd", "bwd")}
     summary = {"recipes": recipes, "entry": ent, "dryrun_multichip": dry,
-               "bounds": EVAL_BOUNDS, "phase_s": time.time() - t0}
+               "phase_s": time.time() - t0}
     return summary, packed, dry["launches"]
 
 

@@ -98,7 +98,7 @@ def _rank(workdir: str, device: str, backend: str) -> None:
     from gmeta_tpu_torch.parallel.mesh import init_distributed, make_mesh
     from gmeta_tpu_torch.utils.device import resolve_device
 
-    if device == "cuda":              # NCCL: a card per rank
+    if backend == "nccl":             # a card per rank
         device = f"cuda:{os.environ['LOCAL_RANK']}"
     device = resolve_device(device)
     if device.type == "cpu":
@@ -176,17 +176,27 @@ def _rank(workdir: str, device: str, backend: str) -> None:
     np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
 
 
+def rank_plan(dev: torch.device, n: int, cards: int):
+    """(the device each rank is given, the backend) of n ranks on `dev`
+    with `cards` CUDA devices: a card per rank over NCCL where there are
+    enough (each rank takes cuda:LOCAL_RANK), else every rank on the one
+    card `dev` names (cuda:0 for a bare "cuda") or on the CPU, over
+    gloo."""
+    if dev.type == "cuda" and n <= cards:
+        return "cuda", "nccl"
+    if dev.type == "cuda":
+        return f"cuda:{dev.index or 0}", "gloo"
+    return str(dev), "gloo"
+
+
 def dryrun_multichip(n: int, device=None, timeout: float = 600.0) -> dict:
     """The dry run of the module docstring over n ranks; raises if a rank
     fails or the ranks disagree, else returns a summary."""
     from gmeta_tpu_torch.parallel.launch import spawn_ranks
     from gmeta_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(device)
-    if dev.type == "cuda" and n <= torch.cuda.device_count():
-        rank_device, backend = "cuda", "nccl"
-    else:
-        rank_device, backend = str(dev), "gloo"
+    rank_device, backend = rank_plan(resolve_device(device), n,
+                                     torch.cuda.device_count())
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])

@@ -18,24 +18,26 @@ its replica (data/replicas.py) through the port's production driver
 
 Modes:
 - training (default): results go to parity_torch/<recipe><tag>.json and
-  .metrics.jsonl; nothing is written under parity/. `--as_record` applies
-  the run of record's preset overrides (parity/<recipe>.json); flags after
-  it override them (an `--epoch` cut, for example). `--init_from_jax`
-  starts from the JAX run's initial theta (parity_torch/init/<recipe>.npz,
-  written by parity_torch/jax_reference.py), so that the two runs differ
-  by rounding, not by an init draw.
-- `--eval_from DIR`: evaluation parity with no training. DIR (a run of
-  record's completed checkpoint, e.g. parity/fold_ppi.ckpt) is copied to
-  a temporary directory; the replica's graphs.npz must have the size in
-  the copy's `DATASET` marker (`<bytes>_<mtime>`; the mtime differs by
-  construction and is not compared); `Trainer.fit` resumes the completed
-  checkpoint and goes straight to the dual final test. The record's
-  preset overrides apply except `device_task_pool` (an execution mode of
-  training), the aggregation is the record's unless `--agg` names one,
-  and the result, with per-task curves, goes to
-  <out>/<recipe><tag>.eval_<agg>.json beside the JAX package's CPU
-  evaluation of the same checkpoint (<recipe>.eval_cpu_jax.json) where
-  that exists.
+  .metrics.jsonl; nothing is written under parity/. The run of record's
+  preset overrides (parity/<recipe>.json) apply, and the flags override
+  them (an `--epoch` cut, for example). `--init_from_jax` starts from the
+  JAX run's initial theta (parity_torch/init/<recipe>.npz, written by
+  parity_torch/jax_reference.py), so that the two runs differ by
+  rounding, not by an init draw.
+- `--eval_from DIR`: evaluation parity with no training (`eval_from`).
+  DIR (a run of record's completed checkpoint, e.g. parity/fold_ppi.ckpt)
+  is copied to a temporary directory; the replica's graphs.npz must have
+  the size in the copy's `DATASET` marker (`<bytes>_<mtime>`; the mtime
+  differs by construction and is not compared); `Trainer.fit` resumes
+  the completed checkpoint and goes straight to the dual final test. The
+  record's preset overrides apply except `device_task_pool` (an
+  execution mode of training). It runs twice on one store, with the
+  record's aggregation and then with `sized`, or once with `--agg`'s;
+  on the full test set each pass is held at `EVAL_BOUNDS` against the
+  JAX package's CPU evaluation of the same checkpoint
+  (<recipe>.eval_cpu_jax.json) and the record, and the second pass
+  against the first. The result, with per-task curves, goes to
+  <out>/<recipe><tag>.eval.json; a missed bound fails the command.
 - `--report` writes PARITY_TORCH.md from the training results; `--check`
   verifies it against them.
 
@@ -46,7 +48,7 @@ result records the aggregation that ran.
 Runs on the card unless `--device` names another.
 
 Usage:
-  python -m gmeta_tpu_torch.run.parity fold_ppi --as_record --init_from_jax
+  python -m gmeta_tpu_torch.run.parity fold_ppi --init_from_jax
   python -m gmeta_tpu_torch.run.parity fold_ppi \\
       --eval_from parity/fold_ppi.ckpt [--agg sized]
   python -m gmeta_tpu_torch.run.parity --report
@@ -333,39 +335,115 @@ def jax_cpu_eval(name: str):
         return json.load(f)
 
 
-def eval_from(name: str, args) -> dict:
-    """The `--eval_from` mode of the CLI."""
+# absolute bounds on the four test accuracies, (float32, bfloat16): against
+# the JAX package's CPU evaluation of the same checkpoint, against the
+# rounded TPU record, and a second pass against the first; every per-task
+# curve within one query of the JAX CPU evaluation's and the first pass's
+EVAL_BOUNDS = {"jax_cpu": (0.003, 0.01), "record": (0.01, 0.02),
+               "first_pass": (0.003, 0.01)}
+BOUNDED = ("test_acc_ref_style", "test_acc_final_step", "best_model_acc",
+           "early_stopped_ref_style")
+
+
+def _max_task_diff(a: dict, b: dict) -> float:
+    return max(float(np.abs(np.asarray(a[k]) - np.asarray(b[k])).max())
+               for k in ("curves_last", "curves_best"))
+
+
+def eval_from(name: str, ckpt_dir: str, replicas: str, device=None,
+              agg: str = "", **over) -> dict:
+    """Evaluation parity of a run of record's completed checkpoint: the
+    replica made where missing and held against the checkpoint's DATASET
+    marker, then the dual final test on one store, with the record's
+    aggregation and then agg="sized", or with `agg` alone. With no cut in
+    `over` (batchsz, eval_batchsz), each pass is held at EVAL_BOUNDS
+    against the JAX package's CPU evaluation of the same checkpoint and
+    the record, and the second against the first; `misses` lists every
+    bound missed. Each pass records its kernel launches (fwd, bwd)."""
+    from gmeta_tpu_torch.ops import sized_spmm as sp
     from gmeta_tpu_torch.run.train import build_datasets
     from gmeta_tpu_torch.utils.device import resolve_device
-    device = resolve_device(args.device)
-    rep_dir, gen_s = replica(name, args.replicas)
-    size = check_replica(rep_dir, args.eval_from)
-    over = {k: getattr(args, k) for k in ("batchsz", "eval_batchsz")
-            if getattr(args, k)}
-    cfg = eval_config(name, rep_dir, args.agg, **over)
+    device = resolve_device(device)
+    rep_dir, gen_s = replica(name, replicas)
+    size = check_replica(rep_dir, ckpt_dir)
+    cfg = eval_config(name, rep_dir, **over)
+    aggs = [agg] if agg else list(dict.fromkeys([cfg.agg, "sized"]))
     t0 = time.time()
     store, datasets, labels_num = build_datasets(cfg)
     data_s = time.time() - t0
-    got = eval_checkpoint(cfg, store, datasets, labels_num, args.eval_from,
-                          device=device)
-    jax_cpu = jax_cpu_eval(name) if not over else None
-    out = {"recipe": name, **card(device), "eval_from": args.eval_from,
-           "graphs_npz_bytes": size, "overrides": over,
-           **{k: got[k] for k in ("agg", "dtype", "n_test_tasks", "acc")},
-           "record_acc": record(name)["acc"],
-           "jax_cpu_acc": None if jax_cpu is None else jax_cpu["acc"],
-           **compare(got, name, jax_cpu),
-           "curves_last": np.round(got["curves_last"], 6).tolist(),
-           "curves_best": np.round(got["curves_best"], 6).tolist(),
-           "wall_s": {"replica_gen": round(gen_s, 1),
-                      "data_and_extraction": round(data_s, 1),
-                      "eval": round(got["eval_s"], 1)}}
+    one_query = 1.0 / len(datasets["test"].tasks[0].qry_labels)
+    jax_cpu = None if over else jax_cpu_eval(name)
+    f32 = cfg.dtype == "float32"
+    passes, misses = {}, []
+
+    def miss(what, diffs, which):
+        bound = EVAL_BOUNDS[which][0 if f32 else 1]
+        misses.extend(f"{name} {what} {k}: {diffs[k]:+.4f} (bound {bound})"
+                      for k in BOUNDED if abs(diffs[k]) > bound)
+
+    first = None
+    for a in aggs:
+        before = dict(sp.launches)
+        got = eval_checkpoint(dataclasses.replace(cfg, agg=a), store,
+                              datasets, labels_num, ckpt_dir, device=device)
+        got["launches"] = {d: sp.launches[d] - before[d] for d in before}
+        d = compare(got, name, jax_cpu)
+        res = {k: got[k] for k in ("agg", "acc", "launches", "curves_last",
+                                   "curves_best", "eval_s")}
+        res.update(d)
+        if first is not None:
+            res["vs_first_pass"] = {k: got["acc"][k] - first["acc"][k]
+                                    for k in BOUNDED}
+            res["max_task_diff_vs_first_pass"] = _max_task_diff(got, first)
+        if not over:
+            miss(f"{a} vs record", d["vs_record"], "record")
+            if jax_cpu is not None:
+                miss(f"{a} vs JAX CPU", d["vs_jax_cpu"], "jax_cpu")
+                if d["max_task_diff"] > one_query + 1e-6:
+                    misses.append(f"{name} {a} vs JAX CPU: a task's curve "
+                                  f"{d['max_task_diff']:.4f} off (bound "
+                                  f"one query, {one_query:.4f})")
+            if first is not None:
+                miss(f"{a} vs {first['agg']}", res["vs_first_pass"],
+                     "first_pass")
+                if res["max_task_diff_vs_first_pass"] > one_query + 1e-6:
+                    misses.append(
+                        f"{name} {a} vs {first['agg']}: a task's curve "
+                        f"{res['max_task_diff_vs_first_pass']:.4f} off "
+                        f"(bound one query, {one_query:.4f})")
+        passes[a] = res
+        first = first or got
+        print(json.dumps({"recipe": name, "agg": a, "acc": got["acc"],
+                          "vs_record": d["vs_record"],
+                          "launches": got["launches"]}), flush=True)
+    return {"recipe": name, **card(device), "eval_from": ckpt_dir,
+            "graphs_npz_bytes": size, "overrides": over, "dtype": cfg.dtype,
+            "n_test_tasks": len(datasets["test"]), "one_query": one_query,
+            "record_acc": record(name)["acc"],
+            "jax_cpu_acc": None if jax_cpu is None else jax_cpu["acc"],
+            "checked": not over, "bounds": EVAL_BOUNDS, "misses": misses,
+            "passes": passes,
+            "wall_s": {"replica_gen": round(gen_s, 1),
+                       "data_and_extraction": round(data_s, 1)}}
+
+
+def _eval_cli(name: str, args) -> dict:
+    """The `--eval_from` mode of the CLI: the result, its per-task curves
+    rounded, into <out>/<recipe><tag>.eval.json; raises on a miss."""
+    over = {k: getattr(args, k) for k in ("batchsz", "eval_batchsz")
+            if getattr(args, k)}
+    out = eval_from(name, args.eval_from, args.replicas, args.device,
+                    args.agg, **over)
+    for res in out["passes"].values():
+        for k in ("curves_last", "curves_best"):
+            res[k] = np.round(res[k], 6).tolist()
     os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, f"{name}{args.tag}.eval_{got['agg']}.json")
-    with open(path, "w") as f:
+    with open(os.path.join(args.out, f"{name}{args.tag}.eval.json"),
+              "w") as f:
         json.dump(out, f, indent=1)
-    print(json.dumps({k: out[k] for k in ("recipe", "agg", "acc",
-                                          "vs_record")}), flush=True)
+    if out["misses"]:
+        raise SystemExit("evaluation parity out of bounds:\n  "
+                         + "\n  ".join(out["misses"]))
     return out
 
 
@@ -398,7 +476,7 @@ def run_recipe(name: str, args) -> dict:
     cfg.data_dir = rep_dir
     # telemetry query-evals off: trains identically (config.py)
     cfg.track_train_curve = False
-    scaled = dict(record(name)["preset_overrides"]) if args.as_record else {}
+    scaled = dict(record(name)["preset_overrides"])
     if args.probe:
         scaled.update(batchsz=min(cfg.batchsz, 400), eval_batchsz=50,
                       epoch=min(cfg.epoch, 3))
@@ -552,7 +630,7 @@ def write_report(out_dir: str = OUT) -> None:
         "# PARITY_TORCH — the five recipes trained by the port",
         "",
         "Each recipe trained by `python -m gmeta_tpu_torch.run.parity"
-        " <recipe> --as_record --init_from_jax`",
+        " <recipe> --init_from_jax`",
         "on its replica (`gmeta_tpu_torch/data/replicas.py`), from the JAX"
         " run of record's initial",
         "theta, with the run of record's preset overrides and the cuts in"
@@ -624,9 +702,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser("gmeta_tpu_torch.run.parity",
                                  allow_abbrev=False)
     ap.add_argument("recipes", nargs="*", choices=list(REF) + [[]])
-    ap.add_argument("--as_record", action="store_true",
-                    help="apply the run of record's preset overrides "
-                         "(parity/<recipe>.json) before the flags below")
     ap.add_argument("--init_from_jax", action="store_true",
                     help="start from the JAX run's initial theta "
                          "(parity_torch/init/<recipe>.npz)")
@@ -665,7 +740,7 @@ def main(argv=None):
     if args.check:
         check_report(args.out)
         return None
-    results = [eval_from(name, args) if args.eval_from
+    results = [_eval_cli(name, args) if args.eval_from
                else run_recipe(name, args) for name in args.recipes]
     if args.report:
         write_report(args.out)

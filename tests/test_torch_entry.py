@@ -39,6 +39,14 @@ def test_entry_needs_a_device_or_cuda():
         entry.entry()
 
 
+def test_rank_plan_puts_shared_card_ranks_on_one_indexed_card():
+    cuda = torch.device("cuda")
+    assert entry.rank_plan(cuda, 4, 1) == ("cuda:0", "gloo")
+    assert entry.rank_plan(torch.device("cuda", 0), 4, 1) == ("cuda:0", "gloo")
+    assert entry.rank_plan(cuda, 4, 4) == ("cuda", "nccl")
+    assert entry.rank_plan(torch.device("cpu"), 4, 0) == ("cpu", "gloo")
+
+
 def test_dryrun_multichip_on_four_gloo_ranks():
     out = entry.dryrun_multichip(4, device="cpu", timeout=240.0)
     assert out["backend"] == "gloo" and out["device"] == "cpu"

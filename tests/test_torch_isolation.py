@@ -176,7 +176,9 @@ out, = parity.main(["firstmm_db", "--eval_from", "parity/firstmm_db.ckpt",
                     "--device", "cpu", "--replicas", sys.argv[1],
                     "--out", sys.argv[2], "--batchsz", "8",
                     "--eval_batchsz", "2"])
-assert out["agg"] == "dense" and out["n_test_tasks"] == 2, out
+assert list(out["passes"]) == ["dense", "sized"], out
+assert out["n_test_tasks"] == 2 and not out["checked"], out
+assert out["passes"]["sized"]["max_task_diff_vs_first_pass"] <= out["one_query"]
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "optax", "gmeta_tpu"))
 print("LOADED", loaded)
@@ -186,7 +188,8 @@ print("LOADED", loaded)
 def test_eval_from_loads_no_jax(tmp_path):
     """The parity runner's --eval_from (a firstmm_db replica made by the
     port, a copy of the run of record's checkpoint, the dual final test
-    on 2 tasks) loads neither jax, optax nor gmeta_tpu."""
+    on 2 tasks with dense and with sized aggregation) loads neither jax,
+    optax nor gmeta_tpu."""
     _run(EVAL_FROM.replace("sys.argv[1]", repr(str(tmp_path / "rep")))
          .replace("sys.argv[2]", repr(str(tmp_path / "out"))))
 
