@@ -125,14 +125,28 @@ Phases; any failure raises and the script exits non-zero:
                 1e-5), and dryrun_multichip(4) called with no device, as
                 a user calls it: its ranks share this card over gloo (the
                 edge engine's gathers must launch in them).
+  12. measure — the measurement scripts (gmeta_tpu_torch/scripts/), each
+                main() in this process at a cut size: bench_kernels at the
+                five runs of record's buckets with one task each (float32
+                and bf16), bench_pallas_spmm, bench_transfer (2 reps),
+                bench_edges at 2^19 nodes, and bench_edgepart on a
+                Tree-of-Life-shaped replica of 64 graphs made under
+                build/chip_smoke_measure/ (the ToL recipe's per-graph
+                parameters, so ToL's rows but not its size; removed after).
+                Each script holds every path against its plain version
+                and raises on a miss, and must print its result as JSON.
+                Launch counts are set to 0 just before and read just
+                after: the packed kernel, the full-graph body (both
+                directions each) and the combine kernel must launch.
 
 Phase 2 builds the CUDA kernels (nvcc) and the host extraction engine (g++)
 at once. Prints phase 11's parity JSON line, the kernels' JSON line (the
-packed kernel's launches summed over phases 7-11 and every rank, the
-rectangular entry point's and its combine kernel's over phases 10-11),
+packed kernel's launches summed over phases 7-12 and every rank, the
+rectangular entry point's and its combine kernel's over phases 10-12),
 the slice's JSON line (with the modes' warm tasks/s, data_s and peak
-device memory under "modes", phase 9's numbers under "cli" and phase 10's
-under "mesh"), the card's name and power limit, and last
+device memory under "modes", phase 9's numbers under "cli", phase 10's
+under "mesh" and phase 12's under "measure"), the card's name and power
+limit, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or the JAX package,
 and neither do its rank processes.
 """
@@ -142,19 +156,24 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-FP32_PEAK = 67e12      # H100 SXM float32 FLOP/s outside the tensor cores
-HBM_BYTES_S = 3.35e12  # H100 SXM device memory
+try:
+    from gmeta_tpu_torch.utils.cardtime import (FP32_PEAK, HBM_BYTES_S,
+                                                card_line, cuda_ms,
+                                                gather_bound, rounding_bound)
+except ImportError as e:
+    raise SystemExit(f"chip_smoke: the gmeta_tpu_torch package is not "
+                     f"beside this script ({e})")
 TOLS = {"float32": (1e-5, 1e-4), "bfloat16": (8e-3, 8e-3)}  # (rtol, atol)
 # float32: sums of up to P products in another order than cuBLAS's;
 # bf16: both round a float32 sum to bf16, one ulp = 2^-7 relative.
@@ -167,44 +186,6 @@ def log(msg):
 def phase(name):
     log(f"== {name}")
     return time.time()
-
-
-def card_line():
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {r.stderr}")
-    return r.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters=20, warmup=3):
-    """Median milliseconds of fn() on the card, one event pair per call."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def gather_bound(nnz, H, read_rows, n_out):
-    """The least time the card could take for a gather of this data, in ms,
-    and what bounds it: the edges' 2 x nnz x H operations, or the table
-    rows they name and the int32 CSR read once and the whole (n_out, H)
-    float32 output written once, whichever is longer; with those bytes."""
-    t_ops = 2.0 * nnz * H / FP32_PEAK
-    nbytes = 4.0 * (read_rows * H + n_out * H) + 4.0 * (n_out + 1 + nnz)
-    t_bytes = nbytes / HBM_BYTES_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", nbytes)
 
 
 def timed_row(kernel, plain, library, nnz, H, read_rows, n_out):
@@ -1175,16 +1156,6 @@ def time_rect(pair, device):
                                        f"in-degrees, seed 0"}
 
 
-def rounding_bound(row_ptr, col, x):
-    """Per output element, how far two float32 sums of its row's n terms,
-    taken in any two orders, can part: 2 (n - 1) 2^-24 sum |x| (each sum
-    is within (n - 1) 2^-24 sum |x| of the exact one)."""
-    from gmeta_tpu_torch.ops import sized_spmm as sp
-    n = (row_ptr[1:] - row_ptr[:-1]).float()[:, None]
-    return 2 * (n - 1).clamp(min=0) * 2.0**-24 * sp.csr_plain(
-        row_ptr, col, x.abs())
-
-
 def time_combine(split, row_ptr, col, xi, exact, device):
     """The combine kernel alone on the power-law CSR's split rows at
     H = xi's width: the chunks' float32 partial sums of the small-integer
@@ -1772,6 +1743,101 @@ def parity_phase(device):
     return summary, packed, dry["launches"]
 
 
+MEASURE = Path(__file__).resolve().parent / "build" / "chip_smoke_measure"
+TOL_PREFIX = 64          # graphs of the Tree-of-Life-shaped prefix
+
+
+def run_script(name, argv):
+    """One measurement script's main() in this process on the card, its
+    printed lines caught: the JSON line must hold the result, and the
+    markdown table is logged. Returns (result, seconds)."""
+    import importlib
+    mod = importlib.import_module(f"gmeta_tpu_torch.scripts.{name}")
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        result = mod.main(["--device", "cuda", "--out",
+                           str(MEASURE / f"{name}.json")] + argv)
+    seconds = time.time() - t0
+    lines = buf.getvalue().splitlines()
+    printed = [json.loads(x) for x in lines if x.startswith("{")]
+    assert printed == [json.loads(json.dumps(result))], name
+    for x in lines:
+        if not x.startswith("{"):
+            log(f"  {x}")
+    log(f"  {name} {' '.join(argv)}: {seconds:.1f} s")
+    return result, seconds
+
+
+def measure_phase():
+    """Phase 12: the measurement scripts (gmeta_tpu_torch/scripts/), each
+    main() at a cut size: bench_kernels at the five records' buckets with
+    one task each, bench_pallas_spmm, bench_transfer (2 reps), bench_edges
+    at 2^19 nodes, and bench_edgepart on a Tree-of-Life-shaped replica of
+    TOL_PREFIX graphs made here (the ToL recipe's per-graph parameters:
+    ToL's rows, not the full replica's size; removed after). Each script
+    holds every path against its plain version and raises on a miss.
+    Launch counts are set to 0 just before and read just after; the packed
+    kernel (both directions), the full-graph body (both) and the combine
+    kernel must have launched. Returns (summary, launches)."""
+    from gmeta_tpu_torch.data import replicas
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    import torch
+
+    t0 = time.time()
+    shutil.rmtree(MEASURE, ignore_errors=True)
+    zero_counts()
+    res, secs = {}, {}
+    try:
+        res["bench_kernels"], secs["bench_kernels"] = run_script(
+            "bench_kernels", ["--tasks", "1", "--iters", "10"])
+        res["bench_pallas_spmm"], secs["bench_pallas_spmm"] = run_script(
+            "bench_pallas_spmm", ["--iters", "10"])
+        res["bench_transfer"], secs["bench_transfer"] = run_script(
+            "bench_transfer", ["--reps", "2"])
+        res["bench_edges"], secs["bench_edges"] = run_script(
+            "bench_edges", ["19", "8", "--iters", "1"])
+        t1 = time.time()
+        tol = MEASURE / "tree_of_life"
+        replicas.make_tree_of_life(str(tol), n_graphs=TOL_PREFIX)
+        log(f"  Tree-of-Life-shaped replica of {TOL_PREFIX} graphs made in "
+            f"{time.time() - t1:.1f} s")
+        res["bench_edgepart"], secs["bench_edgepart"] = run_script(
+            "bench_edgepart", ["--data", str(tol), "--graphs",
+                               str(TOL_PREFIX)])
+    finally:
+        shutil.rmtree(MEASURE, ignore_errors=True)
+    launches = {"packed": dict(sp.launches), "csr": dict(sp.csr_launches),
+                "combine": dict(sp.combine_launches)}
+    for kind in ("packed", "csr"):
+        assert all(launches[kind].values()), launches
+    assert launches["combine"]["fwd"] > 0, launches
+    buckets = res["bench_kernels"]["buckets"]
+    assert len(buckets) == 10, list(buckets)
+    ep = res["bench_edgepart"]
+    assert ep["graphs"] == TOL_PREFIX and ep["value"] > 0, ep
+    assert math.isclose(ep["value"], ep["tasks_per_s"] * ep["edges"]), ep
+    tr = res["bench_transfer"]
+    summary = {
+        "seconds": secs, "phase_s": time.time() - t0,
+        "kernels_winner_f32": {k: r["winner_f32_fwd"]
+                               for k, r in buckets.items()},
+        "kernels_max_abs_err": {k: r["max_abs_err"]
+                                for k, r in buckets.items()},
+        "pallas_spmm": {t: res["bench_pallas_spmm"][t]
+                        for t in ("f32", "bf16")},
+        "transfer": {k: tr[k] for k in (
+            "pack_s", "transfer_pageable_s", "transfer_pinned_s",
+            "transfer_window_s", "step_pool_s", "step_stream_s")},
+        "edges": {k: v for k, v in res["bench_edges"].items()
+                  if k.startswith(("segment", "ell", "csr_gather"))},
+        "edgepart": {k: ep[k] for k in ("graphs", "nodes", "edges",
+                                        "step_s", "value", "peak_gb")},
+        "launches": launches}
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1933,6 +1999,12 @@ def main():
         f"{packed11}, the dry run's ranks {dry11}")
     log(json.dumps({"parity": parity11}))
 
+    t = phase("12 measure: the measurement scripts at cut sizes")
+    measure12, l12 = measure_phase()
+    log(f"  {time.time() - t:.1f} s; kernel launches of phase 12: packed "
+        f"{l12['packed']}, csr_gather {l12['csr']}, combine "
+        f"{l12['combine']}")
+
     kernels = []
     for direction, line in (("fwd", 39), ("bwd", 80)):
         head = timing[(direction, 256)]
@@ -1945,13 +2017,15 @@ def main():
                          + cli_launches[direction]
                          + mesh_launches[direction]
                          + packed11[direction]
-                         + dry11["packed"][direction]),
+                         + dry11["packed"][direction]
+                         + l12["packed"][direction]),
             "launches_by_phase": {"7": main_path[direction],
                                   "8": mode_launches[direction],
                                   "9": cli_launches[direction],
                                   "10": mesh_launches[direction],
                                   "11": packed11[direction]
-                                  + dry11["packed"][direction]},
+                                  + dry11["packed"][direction],
+                                  "12": l12["packed"][direction]},
             "max_abs_err": max(errs[direction]["float32"],
                                head["max_abs_err"]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -1971,9 +2045,11 @@ def main():
             "source": "gmeta_tpu_torch/csrc/sized_spmm.cu",
             # the edge engine's segment-sum, an XLA op in the JAX package
             "replaces": "gmeta_tpu/parallel/edgepart_train.py:129",
-            "launches": rect_launches[direction] + dry11["csr"][direction],
+            "launches": (rect_launches[direction] + dry11["csr"][direction]
+                         + l12["csr"][direction]),
             "launches_by_phase": {"10": rect_launches[direction],
-                                  "11": dry11["csr"][direction]},
+                                  "11": dry11["csr"][direction],
+                                  "12": l12["csr"][direction]},
             "max_abs_err": head["max_abs_err"],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1991,9 +2067,11 @@ def main():
         "source": "gmeta_tpu_torch/csrc/sized_spmm.cu",
         "replaces": "gmeta_tpu/parallel/edgepart_train.py:129",
         "launches": (sum(combine_launches.values())
-                     + sum(dry11["combine"].values())),
+                     + sum(dry11["combine"].values())
+                     + sum(l12["combine"].values())),
         "launches_by_direction": combine_launches,
         "launches_phase_11": dry11["combine"],
+        "launches_phase_12": l12["combine"],
         **{k: combine_row[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "split_rows", "chunks")},
@@ -2010,7 +2088,7 @@ def main():
         "dense_step_s": dense_s, "step_s_turns": turns,
         "step_peak_gb": peaks, "profile": breakdown,
         "result": dataclasses.asdict(result), "modes": modes, "cli": cli,
-        "mesh": mesh, "card": card}}))
+        "mesh": mesh, "measure": measure12, "card": card}}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

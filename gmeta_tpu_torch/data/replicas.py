@@ -398,9 +398,10 @@ def make_firstmm_db(out: str, seed=3):
                         beta=3.5, z_win=32)
 
 
-def make_tree_of_life(out: str, seed=4):
-    # ToL: 1,840 species PPI networks, ~2.9k nodes each, 1-dim feature
-    return _link_recipe(out, n_graphs=1_840, n=2_900, feat_dim=1,
+def make_tree_of_life(out: str, seed=4, n_graphs=1_840):
+    # ToL: 1,840 species PPI networks, ~2.9k nodes each, 1-dim feature;
+    # fewer graphs give a replica of ToL's per-graph shape (chip_smoke.py)
+    return _link_recipe(out, n_graphs=n_graphs, n=2_900, feat_dim=1,
                         local_k=3, hub_deg=7.5, seed=seed,
                         feature_kind="degree", noise=0.4,
                         beta=2.5, z_win=32)

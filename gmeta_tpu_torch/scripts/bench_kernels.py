@@ -1,0 +1,367 @@
+"""The aggregation crossover at the five runs of record's bucket shapes:
+which of the port's aggregation paths is fastest where.
+
+Counterpart of scripts/bench_kernels.py. For each recipe's support and
+query buckets (B bins x P slots, E edge slots per task, from
+parity/<recipe>.json), at H = the width the layer aggregates (the spt
+bucket at min(feat, hidden), the qry bucket at hidden; models/gcn.py
+aggregates the narrow side first), over S = tasks x B bins (`--tasks`,
+default the preset's task_num: one launch of the port's meta-step covers
+that many tasks; `--tasks 1` is the JAX script's shape), it times:
+
+  dense    `densify` (the once-per-step precompute), then
+           `aggregate_dense` (torch.bmm; bf16 inputs are multiplied in
+           float32, as models/gcn.py runs them) forward, and its
+           transpose as autograd runs it in the backward, torch.bmm(A^T,
+           g) on float32 operands; plus torch.bmm on bf16 operands (the
+           tensor cores), which the port does not run
+  sized    `sized_graph` (the precompute: two CSR sorts), then the port's
+           `csr_gather_kernel` (ops/sized_spmm.py `launch`) forward and
+           transposed, float32 and bf16
+  segment  `ops/spmm.aggregate` (gather, index_add_), float32, forward
+  ell      `aggregate_ell` over `build_ell` slabs (row_cap 16; its host
+           build timed on the host clock), float32, forward
+
+Each time is the median of single launches between CUDA events
+(`cardtime.cuda_ms`); each card time also has its back-to-back twin
+(`cuda_ms_b2b`: 20 launches between one event pair), which shows where a
+single launch is the host's launch time rather than the card's work.
+Each row carries its bound (`cardtime.gather_bound`, `dense_bound`).
+Every path's output is held against the plain gather (`sized_plain`) at
+the dtype's tolerance: the synthetic bucket is built so that all four
+compute the same function (`synth_bucket`).
+
+    python -m gmeta_tpu_torch.scripts.bench_kernels [--tasks N] [--iters 20]
+        [--recipes arxiv ...] [--device cpu] [--out PATH] [--global-b-ab]
+
+`--global-b-ab` only times the dense arxiv query aggregation at the
+record's B against the mean per-task need (25 bins), and merges that
+into the existing output.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from gmeta_tpu_torch.config import PRESETS
+from gmeta_tpu_torch.ops import sized_spmm as sp
+from gmeta_tpu_torch.ops.spmm import (aggregate, aggregate_dense,
+                                      aggregate_ell, build_ell, densify)
+from gmeta_tpu_torch.scripts.common import ROOT, finish, fmt, parser, start
+from gmeta_tpu_torch.utils import cardtime
+
+# (feat, hidden) per recipe preset (config.py PRESETS + replica feature
+# widths): the spt bucket is timed at the layer-1 aggregated width
+# min(feat, hidden), the qry bucket at hidden.
+FEAT_HID = {
+    "arxiv": (128, 256),
+    "tissue_ppi": (50, 128),
+    "fold_ppi": (512, 128),
+    "firstmm_db": (5, 128),
+    "tree_of_life": (1, 256),
+}
+
+# Buckets for a recipe without a run of record (the JAX script's
+# synthetic shapes); all five have records.
+FALLBACK = {
+    "arxiv":      dict(spt=(1024, 9, 18432), qry=(1024, 72, 129024),
+                       fill=0.93),
+    "tissue_ppi": dict(spt=(1024, 6, 49152), qry=(1024, 20, 149504),
+                       fill=0.90),
+    "fold_ppi":   dict(spt=(1024, 9, 18432), qry=(1024, 61, 114688),
+                       fill=0.90),
+    "firstmm_db": dict(spt=(128, 4, 2048), qry=(128, 7, 2048), fill=0.75),
+    "tree_of_life": dict(spt=(128, 14, 4096), qry=(256, 7, 4096),
+                         fill=0.60),
+}
+
+TOLS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (8e-3, 8e-3)}
+DTYPES = (("f32", torch.float32), ("bf16", torch.bfloat16))
+
+
+def load_shapes(parity_dir=None) -> dict:
+    """Bucket shapes of the runs of record (<parity_dir>/<recipe>.json,
+    default parity/): each run's P, B, E and mean bin fill, and the
+    widths of FEAT_HID; the JAX script's dict."""
+    parity_dir = str(parity_dir or ROOT / "parity")
+    shapes = {}
+    for recipe, (feat, hid) in FEAT_HID.items():
+        p = os.path.join(parity_dir, f"{recipe}.json")
+        if os.path.exists(p):
+            with open(p) as f:
+                rec = json.load(f)
+            b = rec["buckets"]
+            shapes[recipe] = dict(
+                spt=(b["P_spt"], b["B_spt"], b["E_spt"]),
+                qry=(b["P_qry"], b["B_qry"], b["E_qry"]),
+                H=(min(feat, hid), hid),
+                fill=float(rec.get("mean_bin_fill", 0.7)),
+                source="parity")
+        else:
+            shapes[recipe] = dict(FALLBACK[recipe], H=(min(feat, hid), hid),
+                                  source="fallback")
+    return shapes
+
+
+def synth_bucket(P, B, E, H, fill, rng, avg_deg=10, with_A=True):
+    """One packed bucket: B bins with ~fill*P live rows, up to E edges
+    uniform over each bin's live slots, h random; the JAX script's draws,
+    bitwise. Returns (A or None, h, sizes, src, dst, mask).
+
+    Two entries differ from the JAX script's, so that the dense path and
+    the edge paths compute one function: A counts a duplicate edge as
+    often as the edge list holds it (np.add.at; `A[b, d, s] += 1.0` adds
+    it once), and the mask zeroes the pad edges by position, the last
+    `pad` entries after the stable sort (masking every dst == B*P - 1 also
+    drops the real edges into the last slot)."""
+    sizes = np.clip((rng.normal(fill, 0.1, B) * P).astype(int), 16, P)
+    A = np.zeros((B, P, P), np.float32) if with_A else None
+    srcs, dsts = [], []
+    per_bin = max(E // B, 1)
+    for b in range(B):
+        n = sizes[b]
+        m = min(per_bin, n * avg_deg)
+        s = rng.randint(0, n, m)
+        d = rng.randint(0, n, m)
+        if A is not None:
+            np.add.at(A[b], (d, s), 1.0)
+        srcs.append(b * P + s)
+        dsts.append(b * P + d)
+    src = np.concatenate(srcs)[:E]
+    dst = np.concatenate(dsts)[:E]
+    pad = E - len(src)
+    if pad:
+        src = np.concatenate([src, np.zeros(pad, np.int64)])
+        dst = np.concatenate([dst, np.full(pad, B * P - 1, np.int64)])
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    mask = np.ones(E, np.float32)
+    mask[E - pad:] = 0.0          # the pads sort last: stable, dst = B*P-1
+    h = rng.randn(B, P, H).astype(np.float32)
+    return A, h, sizes.astype(np.int32), src.astype(np.int32), \
+        dst.astype(np.int32), mask
+
+
+class Timer:
+    """Times callables on one device: the single-launch median, and on
+    CUDA its back-to-back twin."""
+
+    def __init__(self, device, iters):
+        self.device, self.iters = device, iters
+        self.cuda = device.type == "cuda"
+
+    def ms(self, fn):
+        return cardtime.device_ms(fn, self.device, self.iters)
+
+    def b2b(self, fn):
+        return cardtime.cuda_ms_b2b(fn) if self.cuda else None
+
+    def both(self, row, key, fn):
+        row[key] = self.ms(fn)
+        row[key + "_b2b"] = self.b2b(fn)
+
+
+def _err(got, want, dtype, what):
+    """Max abs error of got against want, raising past the dtype's
+    tolerance."""
+    rtol, atol = TOLS[dtype]
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                               msg=lambda m: f"{what}: {m}")
+    return (got - want).abs().max().item()
+
+
+def bench_bucket(P, B, E, H, fill, tasks, rng, device, timer) -> dict:
+    """Every path at one bucket of `tasks` tasks; ms per layer call."""
+    S = tasks * B
+    V = S * P
+    _, h, _, src, dst, mask = synth_bucket(P, S, tasks * E, H, fill, rng,
+                                           with_A=False)
+    live = mask > 0
+    row = dict(P=P, B=B, E=E, H=H, tasks=tasks, S=S, nnz=int(live.sum()))
+    src_d, dst_d, mask_d = (torch.from_numpy(a).to(device)
+                            for a in (src, dst, mask))
+    errs = {}
+    for tag, dtype in DTYPES:
+        x = torch.from_numpy(h).to(device, dtype)
+        itemsize = x.element_size()
+        graph = sp.sized_graph(src_d, dst_d, mask_d, S, P)
+        plain = {d: sp.sized_plain(*graph.csr(d), x) for d in ("fwd", "bwd")}
+
+        # sized: the precompute, then the kernel both ways
+        row[f"sized_{tag}_pre"] = timer.ms(
+            lambda: sp.sized_graph(src_d, dst_d, mask_d, S, P))
+        for d, key in (("fwd", "fwd"), ("bwd", "T")):
+            errs[f"sized_{tag}_{key}"] = _err(sp.launch(d, graph, x),
+                                              plain[d], dtype,
+                                              f"sized {tag} {d}")
+            timer.both(row, f"sized_{tag}_{key}",
+                       lambda d=d: sp.launch(d, graph, x))
+            row_ptr, col = graph.csr(d)
+            nnz = int(row_ptr[-1])
+            read = int(torch.unique(col[:nnz]).numel())
+            ms, by, _ = cardtime.gather_bound(nnz, H, read, V, itemsize)
+            row[f"sized_{tag}_{key}_bound"] = ms
+            row[f"sized_{tag}_{key}_bound_by"] = by
+
+        # dense: densify, then torch.bmm both ways
+        A = densify(src_d, dst_d, mask_d, S, P, dtype=dtype)
+        row[f"dense_{tag}_pre"] = timer.ms(
+            lambda: densify(src_d, dst_d, mask_d, S, P, dtype=dtype))
+        errs[f"dense_{tag}_fwd"] = _err(aggregate_dense(A, x), plain["fwd"],
+                                        dtype, f"dense {tag} fwd")
+        timer.both(row, f"dense_{tag}_fwd", lambda: aggregate_dense(A, x))
+        A32, g32 = A.float(), x.float()       # autograd's saved operands
+        errs[f"dense_{tag}_T"] = _err(torch.bmm(A32.mT, g32), plain["bwd"],
+                                      dtype, f"dense {tag} T")
+        timer.both(row, f"dense_{tag}_T", lambda: torch.bmm(A32.mT, g32))
+        del A32, g32
+        ms, by, _ = cardtime.dense_bound(S, P, H, dtype)
+        row[f"dense_{tag}_bound"], row[f"dense_{tag}_bound_by"] = ms, by
+        if dtype == torch.bfloat16:
+            errs["bmm_bf16_fwd"] = _err(torch.bmm(A, x), plain["fwd"],
+                                        dtype, "bmm bf16")
+            timer.both(row, "bmm_bf16_fwd", lambda: torch.bmm(A, x))
+        if dtype == torch.float32:
+            # segment and ell, float32 forward, as the JAX script
+            hf, want = x.view(V, H), plain["fwd"].view(V, H)
+            errs["segment_f32_fwd"] = _err(
+                aggregate(hf, src_d, dst_d, mask_d, V), want, dtype,
+                "segment")
+            timer.both(row, "segment_f32_fwd",
+                       lambda: aggregate(hf, src_d, dst_d, mask_d, V))
+            t0 = time.perf_counter()
+            nbr, emask, row_id = build_ell(src[live], dst[live], V,
+                                           row_cap=16)
+            row["ell_build_host_ms"] = 1e3 * (time.perf_counter() - t0)
+            nbr, emask, row_id = (torch.from_numpy(a).to(device)
+                                  for a in (nbr, emask, row_id))
+            errs["ell_f32_fwd"] = _err(
+                aggregate_ell(hf, nbr, emask, row_id, V), want, dtype, "ell")
+            timer.both(row, "ell_f32_fwd",
+                       lambda: aggregate_ell(hf, nbr, emask, row_id, V))
+            del nbr, emask, row_id
+        del A, graph, plain, x
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    row["max_abs_err"] = errs
+    for tag, _ in DTYPES:
+        paths = {p: row[f"{p}_{tag}_fwd"] for p in ("dense", "sized")}
+        if tag == "f32":
+            paths.update(segment=row["segment_f32_fwd"],
+                         ell=row["ell_f32_fwd"])
+        row[f"winner_{tag}_fwd"] = min(paths, key=paths.get)
+        # one precompute and one layer call each way: the least weight the
+        # precompute can carry in a step
+        row[f"sized_over_dense_{tag}"] = (
+            sum(row[f"sized_{tag}_{k}"] for k in ("pre", "fwd", "T"))
+            / sum(row[f"dense_{tag}_{k}"] for k in ("pre", "fwd", "T")))
+    return row
+
+
+def global_b_ab(shapes, tasks, rng, device, timer) -> dict:
+    """The dense arxiv query aggregation at the record's B against the
+    measured mean per-task need (25 bins, PACKING.md §3): the ceiling
+    that any compaction of bins could reclaim from the dense path."""
+    P, B_global, E = shapes["arxiv"]["qry"]
+    H = shapes["arxiv"]["H"][1]
+    fill = shapes["arxiv"]["fill"]
+    B_mean = 25
+    out = {"P": P, "H": H, "tasks": tasks, "B_global": B_global,
+           "B_mean_need": B_mean}
+    for tag, B in (("global", B_global), ("mean_need", B_mean)):
+        S = tasks * B
+        _, h, _, src, dst, mask = synth_bucket(P, S, tasks * E, H, fill,
+                                               rng, with_A=False)
+        A = densify(*(torch.from_numpy(a).to(device)
+                      for a in (src, dst, mask)), S, P)
+        x = torch.from_numpy(h).to(device)
+        out[f"dense_f32_{tag}_ms"] = timer.ms(lambda: aggregate_dense(A, x))
+        del A, x
+    out["speedup_ceiling"] = (out["dense_f32_global_ms"]
+                              / out["dense_f32_mean_need_ms"])
+    return out
+
+
+def table(results) -> list:
+    lines = ["| bucket | S | H | dtype | dense pre | dense fwd | dense T |"
+             " sized pre | sized fwd | sized T | sized bound fwd |"
+             " bmm bf16 | segment | ell | fastest fwd |"
+             " sized/dense (pre+fwd+T) |",
+             "|---" * 16 + "|"]
+    for key, r in results["buckets"].items():
+        for tag, _ in DTYPES:
+            cells = [key, str(r["S"]), str(r["H"]), tag]
+            cells += [fmt(r[f"{p}_{tag}_{k}"]) for p in ("dense", "sized")
+                      for k in ("pre", "fwd", "T")]
+            cells += [fmt(r[f"sized_{tag}_fwd_bound"], 4),
+                      fmt(r.get("bmm_bf16_fwd") if tag == "bf16" else None),
+                      fmt(r.get(f"segment_{tag}_fwd")),
+                      fmt(r.get(f"ell_{tag}_fwd")),
+                      r[f"winner_{tag}_fwd"],
+                      fmt(r[f"sized_over_dense_{tag}"])]
+            lines.append("| " + " | ".join(cells) + " |")
+    return lines
+
+
+def main(argv=None):
+    ap = parser("bench_kernels", __doc__)
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--tasks", type=int, default=None,
+                    help="tasks per bucket (default: the preset's "
+                         "task_num)")
+    ap.add_argument("--recipes", nargs="*", default=list(FEAT_HID),
+                    choices=list(FEAT_HID))
+    ap.add_argument("--parity_dir", default=None,
+                    help="where the runs of record lie (default parity/)")
+    ap.add_argument("--global-b-ab", action="store_true")
+    args = ap.parse_args(argv)
+    device, head = start(args.device)
+    timer = Timer(device, args.iters)
+    rng = np.random.RandomState(0)
+    shapes = load_shapes(args.parity_dir)
+    before = dict(sp.launches)
+
+    if args.global_b_ab:
+        ab = global_b_ab(shapes, args.tasks or PRESETS["arxiv"].task_num,
+                         rng, device, timer)
+        existing = {}
+        if os.path.exists(args.out):
+            with open(args.out) as f:
+                existing = json.load(f)
+        existing["global_b_ab"] = dict(ab, **head)
+        return finish(existing, args.out,
+                      [json.dumps({"metric": "global_b_ab", **ab})])
+
+    results = dict(head, unit="ms per layer call", iters=args.iters,
+                   timing="median of single launches between CUDA events "
+                          "(*_b2b: 20 launches back to back)"
+                   if device.type == "cuda" else "host clock (CPU)",
+                   buckets={})
+    for recipe in args.recipes:
+        cfg = shapes[recipe]
+        tasks = args.tasks or PRESETS[recipe].task_num
+        for which, H in (("spt", cfg["H"][0]), ("qry", cfg["H"][1])):
+            P, B, E = cfg[which]
+            key = f"{recipe}.{which}"
+            print(f"# {key}: P={P} B={B} E={E} H={H} tasks={tasks} "
+                  f"[{cfg['source']}]", file=sys.stderr, flush=True)
+            results["buckets"][key] = dict(
+                fill=cfg["fill"], source=cfg["source"],
+                **bench_bucket(P, B, E, H, cfg["fill"], tasks, rng, device,
+                               timer))
+    results["launches"] = {d: sp.launches[d] - before[d] for d in before}
+    if device.type == "cuda" and not all(results["launches"].values()):
+        raise RuntimeError(f"the sized kernel did not launch both ways: "
+                           f"{results['launches']}")
+    return finish(results, args.out, table(results))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,11 @@
 """The port stands alone: neither gmeta_tpu_torch (its multi-rank modules,
-replicas, parity runner and entry points included) nor its GPU scripts
-(chip_smoke.py, sweep_sized_spmm.py, chip_ab.py) import jax, optax or the
-JAX package, and neither a port train step, resuming from a checkpoint the
-JAX package wrote, building datasets with the port's C++ engine, a spawned
-rank of a mesh, the parity runner's evaluation from a run of record's
-checkpoint, nor a rank of `dryrun_multichip` loads them (nor the JAX
-package's engine library)."""
+replicas, parity runner, entry points and measurement scripts included) nor
+its GPU scripts (chip_smoke.py, sweep_sized_spmm.py, chip_ab.py) import jax,
+optax or the JAX package, and neither a port train step, resuming from a
+checkpoint the JAX package wrote, building datasets with the port's C++
+engine, a spawned rank of a mesh, the parity runner's evaluation from a run
+of record's checkpoint, nor a rank of `dryrun_multichip` loads them (nor the
+JAX package's engine library)."""
 
 import ast
 import os
@@ -39,7 +39,11 @@ def test_no_jax_imports_in_port_sources():
                    "edgepart_train"):
         assert f"gmeta_tpu_torch/parallel/{module}.py" in names
     assert "gmeta_tpu_torch/run/edgepart.py" in names
-    for module in ("data/replicas.py", "run/parity.py", "entry.py"):
+    for module in ("data/replicas.py", "run/parity.py", "entry.py",
+                   "utils/cardtime.py", "scripts/common.py",
+                   "scripts/bench_kernels.py", "scripts/bench_pallas_spmm.py",
+                   "scripts/bench_transfer.py", "scripts/bench_edges.py",
+                   "scripts/bench_edgepart.py"):
         assert f"gmeta_tpu_torch/{module}" in names
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]

@@ -1,0 +1,374 @@
+"""The port's measurement scripts (gmeta_tpu_torch/scripts/) against the JAX
+package's (scripts/bench_*.py): their synthetic data drawn bitwise alike
+(but for the two repaired entries of `synth_bucket`), the aggregation
+paths they time against the JAX package's on one bucket, bench_transfer's
+pool and stream steps against each other and against the JAX
+MetaLearner, each script's main() on the CPU at a tiny size, and the
+shared bounds of utils/cardtime.py."""
+
+import json
+import math
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gmeta_tpu.data.pack import SubgraphSet as JSubgraphSet
+from gmeta_tpu.data.pack import TaskBatch as JTaskBatch
+from gmeta_tpu.meta import maml as jmaml
+from gmeta_tpu.ops import spmm as jspmm
+from gmeta_tpu.ops.pallas_spmm import sized_reference
+from gmeta_tpu_torch.data import replicas
+from gmeta_tpu_torch.ops import sized_spmm as sp
+from gmeta_tpu_torch.ops import spmm
+from gmeta_tpu_torch.scripts import (bench_edgepart, bench_edges,
+                                     bench_kernels, bench_pallas_spmm,
+                                     bench_transfer)
+from gmeta_tpu_torch.utils import cardtime
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "scripts"))
+import bench_edges as jbench_edges  # noqa: E402
+import bench_kernels as jbench_kernels  # noqa: E402
+import bench_pallas_spmm as jbench_pallas_spmm  # noqa: E402
+import bench_transfer as jbench_transfer  # noqa: E402
+
+torch.set_num_threads(2)
+
+TOLS = {"f32": dict(rtol=1e-5, atol=1e-4), "bf16": dict(rtol=8e-3,
+                                                        atol=8e-3)}
+
+
+# --- the synthetic data, drawn as the JAX scripts draw it --------------------
+
+def test_load_shapes_match_jax():
+    assert bench_kernels.load_shapes() == jbench_kernels.load_shapes()
+    assert bench_kernels.FEAT_HID == jbench_kernels.FEAT_HID
+    assert bench_kernels.FALLBACK == jbench_kernels.FALLBACK
+
+
+@pytest.mark.parametrize("P,B,E,H,fill", [(16, 2, 400, 3, 0.9),
+                                          (64, 3, 700, 5, 0.5)])
+def test_synth_bucket_matches_jax_but_the_two_repairs(P, B, E, H, fill):
+    """Every array bitwise equal to the JAX script's draw but two: A
+    counts a duplicate edge as often as the edge list holds it (the JAX
+    script's `A[b, d, s] += 1.0` counts it once), and the mask zeroes
+    exactly the pad edges, the last `pad` after the stable sort (the JAX
+    script's also zeroes the real edges into the last slot, B*P - 1)."""
+    A, h, sizes, src, dst, mask = bench_kernels.synth_bucket(
+        P, B, E, H, fill, np.random.RandomState(3))
+    jA, jh, jsizes, jsrc, jdst, jmask = jbench_kernels.synth_bucket(
+        P, B, E, H, fill, np.random.RandomState(3))
+    for a, b in ((h, jh), (sizes, jsizes), (src, jsrc), (dst, jdst)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+    n_real = int(np.sum(np.minimum(E // B, sizes.astype(np.int64) * 10)))
+    assert np.array_equal(mask, (np.arange(E) < n_real).astype(np.float32))
+    last = (dst == B * P - 1) & (np.arange(E) < n_real)
+    assert np.array_equal(jmask, np.where(last, 0.0, mask))
+
+    counts = np.zeros((B, P, P), np.float32)
+    live = mask > 0
+    b_, d_, s_ = dst[live] // P, dst[live] % P, src[live] % P
+    np.add.at(counts, (b_, d_, s_), 1.0)
+    assert np.array_equal(A, counts)
+    assert np.array_equal(jA, (counts > 0).astype(np.float32))
+    # the dense operand is what densify makes of the edge list
+    assert np.array_equal(A, spmm.densify(
+        *(torch.from_numpy(x) for x in (src, dst, mask)), B, P).numpy())
+    if P == 16:      # dense bins: both repairs are exercised
+        assert (A > 1).any() and last.any()
+
+
+def test_mk_matches_jax():
+    S, P, H = 3, 64, 5
+    sizes = np.random.RandomState(1).randint(4, 60, S)
+    A, h, sz = bench_pallas_spmm.mk(S, P, H, sizes)
+    jA, jh, jsz = jbench_pallas_spmm.mk(S, P, H, sizes, jnp.float32)
+    assert np.array_equal(A, np.asarray(jA)) and np.array_equal(
+        h, np.asarray(jh)) and np.array_equal(sz, np.asarray(jsz))
+    src, dst, mask = bench_pallas_spmm.edges_of(A)
+    assert np.array_equal(spmm.densify(
+        *(torch.from_numpy(x) for x in (src, dst, mask)), S, P).numpy(), A)
+
+
+def test_synth_packed_matches_jax():
+    args = (3, 32, 2, 100, 64, 3, 200)
+    mine = bench_transfer.synth_packed(*args, S_spt=9, S_qry=12, n_feat=50,
+                                       rng=np.random.RandomState(0))
+    theirs = jbench_transfer.synth_packed(*args, S_spt=9, S_qry=12,
+                                          n_feat=50,
+                                          rng=np.random.RandomState(0))
+    for sg, jsg in zip(mine, theirs):
+        assert sg._fields == jsg._fields
+        for a, b in zip(sg, jsg):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_powerlaw_graph_matches_jax():
+    for a, b in zip(bench_edges.powerlaw_graph(4096, 8),
+                    jbench_edges.powerlaw_graph(4096, 8)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+# --- the paths the scripts time, against the JAX package's -------------------
+
+@pytest.mark.parametrize("tag", ["f32", "bf16"])
+def test_aggregations_match_jax(tag):
+    """On one tiny bucket: dense (torch.bmm; JAX aggregate_dense), the
+    sized path's plain version (JAX sized_reference), and in float32 the
+    segment-sum and ELL paths (JAX aggregate, aggregate_ell), each forward
+    and transposed."""
+    P, B, E, H = 32, 3, 600, 7
+    A, h, sizes, src, dst, mask = bench_kernels.synth_bucket(
+        P, B, E, H, 0.6, np.random.RandomState(5))
+    V = B * P
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[tag]
+    jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16}[tag]
+    At, ht = torch.from_numpy(A).to(tdt), torch.from_numpy(h).to(tdt)
+    Aj, hj = jnp.asarray(A, jdt), jnp.asarray(h, jdt)
+    AjT = jnp.swapaxes(Aj, 1, 2)
+
+    def close(got, want):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), **TOLS[tag])
+
+    close(spmm.aggregate_dense(At, ht), jspmm.aggregate_dense(Aj, hj))
+    close(torch.bmm(At.float().mT, ht.float()),
+          jspmm.aggregate_dense(AjT, hj))
+    graph = sp.sized_graph(*(torch.from_numpy(x) for x in (src, dst, mask)),
+                           B, P)
+    close(sp.sized_plain(*graph.csr("fwd"), ht),
+          sized_reference(Aj, hj, jnp.asarray(sizes)))
+    close(sp.sized_plain(*graph.csr("bwd"), ht),
+          sized_reference(AjT, hj, jnp.asarray(sizes)))
+    if tag == "bf16":
+        return
+    hf = h.reshape(V, H)
+    live = mask > 0
+    for s, d in ((src, dst), (dst, src)):         # forward, transposed
+        order = np.argsort(d, kind="stable")      # JAX: indices sorted
+        s, d, m = s[order], d[order], mask[order]
+        close(spmm.aggregate(torch.from_numpy(hf), torch.from_numpy(s),
+                             torch.from_numpy(d), torch.from_numpy(m), V),
+              jspmm.aggregate(jnp.asarray(hf), jnp.asarray(s),
+                              jnp.asarray(d), jnp.asarray(m), V))
+        ell = spmm.build_ell(s[live[order]], d[live[order]], V, row_cap=16)
+        jell = jspmm.build_ell(s[live[order]], d[live[order]], V,
+                               row_cap=16)
+        assert all(np.array_equal(a, b) for a, b in zip(ell, jell))
+        close(spmm.aggregate_ell(torch.from_numpy(hf),
+                                 *(torch.from_numpy(x) for x in ell), V),
+              jspmm.aggregate_ell(jnp.asarray(hf),
+                                  *(jnp.asarray(x) for x in jell), V))
+
+
+def _clamped(batch):
+    """The batch with every edge source clamped into its destination's bin,
+    as the port's densify, sized_graph and window codec read it: the
+    function both packages compute on such a batch (JAX's densify would
+    wrap or drop a source outside the bin instead)."""
+    def one(sg):
+        P = sg.node_gid.shape[-1]
+        start = sg.edge_dst // P * P
+        src = (start + np.clip(sg.edge_src - start, 0, P - 1)).astype(
+            np.int32)
+        return JSubgraphSet(*sg._replace(edge_src=src))
+    return JTaskBatch(spt=one(batch.spt), qry=one(batch.qry))
+
+
+@pytest.mark.parametrize("agg", ["sized", "dense"])
+def test_transfer_steps_match_each_other_and_jax(agg):
+    """bench_transfer's pool step and stream step give the same meta_loss
+    from the same theta, and it equals the JAX MetaLearner's train_step on
+    the same batch from the same params, at tiny widths."""
+    T, n_feat, feat_dim, hidden, steps = 2, 60, 6, 8, 2
+    rng = np.random.RandomState(0)
+    learner = bench_transfer.make_learner(feat_dim, hidden, steps, agg,
+                                          "cpu", n_feat, rng)
+    batch = bench_transfer.synth_packed(T, 32, 2, 120, 32, 3, 240, S_spt=9,
+                                        S_qry=12, n_feat=n_feat, rng=rng)
+    pool, stream = bench_transfer.pool_and_stream_losses(learner, batch)
+    assert math.isfinite(pool) and pool == stream
+
+    spec = learner.layer_spec
+    j = jmaml.MetaLearner(spec, 3, update_lr=0.01, meta_lr=1e-3,
+                          update_step=steps, update_step_test=2 * steps,
+                          track_curve=False)
+    j.params = tuple(jnp.asarray(p.detach().numpy()) for p in learner.params)
+    j.opt_state = j.tx.init(j.params)
+    j.set_features(np.random.RandomState(0).randn(n_feat, feat_dim)
+                   .astype(np.float32))
+    want = float(j.train_step(_clamped(batch))["meta_loss"])
+    assert math.isclose(pool, want, rel_tol=1e-5), (pool, want)
+
+
+# --- each script's main() on the CPU -----------------------------------------
+
+@pytest.fixture
+def records(tmp_path):
+    """Runs of record with tiny buckets, for bench_kernels."""
+    d = tmp_path / "parity"
+    d.mkdir()
+    for r in bench_kernels.FEAT_HID:
+        (d / f"{r}.json").write_text(json.dumps({
+            "buckets": dict(P_spt=32, B_spt=2, E_spt=200, P_qry=64, B_qry=2,
+                            E_qry=400), "mean_bin_fill": 0.6}))
+    return d
+
+
+def test_bench_kernels_main_writes_its_json(records, tmp_path):
+    out = tmp_path / "kernels.json"
+    res = bench_kernels.main(["--device", "cpu", "--iters", "1", "--tasks",
+                              "2", "--recipes", "arxiv", "tree_of_life",
+                              "--parity_dir", str(records), "--out",
+                              str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(res))
+    assert list(res["buckets"]) == ["arxiv.spt", "arxiv.qry",
+                                    "tree_of_life.spt", "tree_of_life.qry"]
+    row = res["buckets"]["arxiv.qry"]
+    assert (row["S"], row["H"], row["P"]) == (4, 256, 64)
+    for tag in ("f32", "bf16"):
+        for p in ("dense", "sized"):
+            for k in ("pre", "fwd", "T"):
+                assert row[f"{p}_{tag}_{k}"] > 0
+        assert row[f"sized_{tag}_fwd_bound_by"] in ("bytes", "operations")
+        assert row[f"winner_{tag}_fwd"] in ("dense", "sized", "segment",
+                                            "ell")
+    assert row["segment_f32_fwd"] > 0 and row["ell_f32_fwd"] > 0
+    assert row["bmm_bf16_fwd"] > 0 and row["dense_f32_fwd_b2b"] is None
+    assert max(row["max_abs_err"].values()) < 0.05
+    ab = bench_kernels.main(["--device", "cpu", "--iters", "1", "--tasks",
+                             "1", "--parity_dir", str(records),
+                             "--global-b-ab", "--out", str(out)])
+    assert ab["buckets"] == res["buckets"]
+    assert ab["global_b_ab"]["speedup_ceiling"] > 0
+
+
+def test_bench_pallas_spmm_main_writes_its_json(tmp_path):
+    out = tmp_path / "pallas.json"
+    res = bench_pallas_spmm.main(["--device", "cpu", "--shape", "3", "128",
+                                  "8", "--iters", "1", "--out", str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(res))
+    assert res["f32"]["fwd_err"] < 1e-4 and res["f32"]["bwd_err"] < 1e-3
+    for tag in ("f32", "bf16"):
+        for k in ("dense_ms", "sized_ms", "grad_dense_ms", "grad_sized_ms",
+                  "sized_bound_ms", "dense_bound_ms"):
+            assert res[tag][k] > 0
+
+
+def test_bench_transfer_main_writes_its_json(tmp_path):
+    out = tmp_path / "transfer.json"
+    res = bench_transfer.main([
+        "--device", "cpu", "--tasks", "2", "--reps", "1", "--buckets", "32",
+        "2", "100", "32", "3", "200", "--n_feat", "60", "--feat_dim", "6",
+        "--hidden", "8", "--update_step", "2", "--out", str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(res))
+    for k in ("pack_s", "transfer_s", "transfer_pageable_s", "encode_s",
+              "transfer_window_s", "dispatch_s", "step_pool_s",
+              "step_stream_s", "pool_tasks_per_s", "stream_tasks_per_s",
+              "wire_mb", "copied_mb", "window_mb"):
+        assert res[k] > 0, k
+    assert res["transfer_pinned_s"] is None and res["pin_s"] is None
+    assert res["copied_mb"] > res["wire_mb"] > res["window_mb"]
+    assert res["meta_loss_pool"] == res["meta_loss_stream"]
+
+
+def test_bench_edges_main_writes_its_json(tmp_path):
+    out = tmp_path / "edges.json"
+    res = bench_edges.main(["10", "4", "--device", "cpu", "--hidden", "8",
+                            "--iters", "1", "--out", str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(res))
+    assert (res["V"], res["E"]) == (1024, 4096) and res["split_rows"] > 0
+    for tag in ("f32", "bf16"):
+        for name in bench_edges.PATHS:
+            r = res[f"{name}_{tag}"]
+            assert r["fwd_edges_per_s"] > 0 and r["fb_edges_per_s"] > 0
+            assert r["fb_bound_ms"] > r["fwd_bound_ms"] > 0
+        assert res[f"csr_gather_{tag}"]["vs"] == "segment"
+
+
+def test_bench_edgepart_main_reports_edges_per_s(tmp_path):
+    data = tmp_path / "tree_of_life"
+    replicas.make_tree_of_life(str(data), n_graphs=2)
+    out = tmp_path / "edgepart.json"
+    res = bench_edgepart.main(["--device", "cpu", "--data", str(data),
+                               "--graphs", "5", "--steps", "1",
+                               "--task_num", "2", "--out", str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(res))
+    graphs = bench_edgepart.load_prefix(str(data / "graphs.npz"), 5)
+    assert res["graphs"] == len(graphs) == 2
+    assert res["edges"] == sum(g.num_edges for g in graphs)
+    assert res["nodes"] == sum(g.num_nodes for g in graphs)
+    assert res["metric"] == "edgepart_fullgraph_edges_per_s"
+    assert math.isclose(res["value"], res["tasks_per_s"] * res["edges"])
+    assert math.isclose(res["tasks_per_s"], 2 / res["step_s"])
+    assert math.isfinite(res["meta_loss"])
+
+
+def test_bench_edgepart_without_a_replica_raises(tmp_path):
+    with pytest.raises(FileNotFoundError, match="data.replicas tree_of_life"):
+        bench_edgepart.main(["--device", "cpu", "--data",
+                             str(tmp_path / "nowhere"), "--out",
+                             str(tmp_path / "x.json")])
+
+
+@pytest.mark.parametrize("module", [bench_kernels, bench_pallas_spmm,
+                                    bench_transfer, bench_edges,
+                                    bench_edgepart])
+def test_scripts_raise_without_cuda(module, tmp_path):
+    """With no --device, a script runs on the card; without one it raises
+    rather than fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(["--out", str(tmp_path / "x.json")])
+
+
+# --- utils/cardtime.py -------------------------------------------------------
+
+def test_cardtime_bounds():
+    # the gather: 4-byte rows read and written, int32 CSR; chip_smoke's
+    # formula, unchanged by the move
+    ms, by, nbytes = cardtime.gather_bound(1000, 256, 100, 50)
+    assert nbytes == 4.0 * (100 * 256 + 50 * 256) + 4.0 * (51 + 1000)
+    assert by == "bytes" and math.isclose(ms, 1e3 * nbytes / 3.35e12)
+    ms2, _, nbytes2 = cardtime.gather_bound(1000, 256, 100, 50, itemsize=2)
+    assert nbytes2 < nbytes and ms2 < ms
+    ms, by, _ = cardtime.gather_bound(10**9, 256, 10, 10)
+    assert by == "operations"
+    assert math.isclose(ms, 1e3 * 2.0 * 10**9 * 256 / 67e12)
+    # the dense product: float32 at 67 TFLOP/s, bf16 on the tensor cores
+    ms, by, nbytes = cardtime.dense_bound(1184, 1024, 256, torch.float32)
+    assert by == "operations"
+    assert math.isclose(ms, 1e3 * 2.0 * 1184 * 1024**2 * 256 / 67e12)
+    assert nbytes == 4 * (1184 * 1024**2 + 2.0 * 1184 * 1024 * 256)
+    ms, by, _ = cardtime.dense_bound(1184, 1024, 256, torch.bfloat16)
+    assert by == "bytes" and math.isclose(
+        ms, 1e3 * 2 * (1184 * 1024**2 + 2.0 * 1184 * 1024 * 256) / 3.35e12)
+    assert cardtime.device_ms(lambda: None, "cpu", iters=2) >= 0
+
+
+def test_rounding_bound_holds_for_two_orders():
+    """Two sums of each CSR row, in opposite orders, lie within the bound
+    of each other and of the exact (float64) sum, in float32 and bf16."""
+    rng = np.random.RandomState(0)
+    ptr = [0, 0, 1, 40, 300]
+    row_ptr = torch.tensor(ptr, dtype=torch.int32)
+    col = rng.randint(0, 50, 300).astype(np.int32)
+    rev = np.concatenate([col[a:b][::-1] for a, b in zip(ptr, ptr[1:])])
+    x = rng.randn(50, 4).astype(np.float32)
+    for dtype, unit in ((torch.float32, 2.0**-24), (torch.bfloat16, 2.0**-8)):
+        xd = torch.from_numpy(x).to(dtype)
+        xs = xd.double().numpy()
+        exact = np.stack([xs[col[a:b]].sum(0) for a, b in zip(ptr, ptr[1:])])
+        bound = cardtime.rounding_bound(row_ptr, torch.from_numpy(col), xd,
+                                        unit).numpy()
+        assert (bound[:2] == 0).all() and (bound[2:] > 0).all()
+        one = sp.csr_plain(row_ptr, torch.from_numpy(col), xd).double()
+        other = sp.csr_plain(row_ptr, torch.from_numpy(rev), xd).double()
+        assert (np.abs(one.numpy() - other.numpy()) <= bound).all()
+        assert (np.abs(one.numpy() - exact) <= bound).all()
