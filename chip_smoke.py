@@ -138,14 +138,31 @@ Phases; any failure raises and the script exits non-zero:
                 Launch counts are set to 0 just before and read just
                 after: the packed kernel, the full-graph body (both
                 directions each) and the combine kernel must launch.
+  13. calibrate — the replica calibrators (gmeta_tpu_torch/scripts/
+                calibrate_*.py). (a) calibrate_replicas' five proxies at
+                their full sizes, the A_hat^2 X hops through the
+                full-graph body (and the combine kernel for rows of more
+                than 128 edges), each hop held against csr_plain on the
+                same input within cardtime.rounding_bound; then the same
+                proxies through csr_plain on the card. Both proxy values
+                of each recipe within 0.002 of the plain run's and of the
+                JAX script's on the CPU (calibrate_replicas.JAX_CPU).
+                (b) calibrate_link firstmm_db, one row (noise 0.30, beta
+                3.5, --probe --agg sized) through the parity runner from
+                the JAX initial theta, under build/chip_smoke_cal/
+                (removed after): finite accuracies and the JAX script's
+                sweep JSON keys. Launch counts are set to 0 just before
+                and read just after each part: (a) must launch the
+                full-graph body, (b) the packed kernel both ways.
 
 Phase 2 builds the CUDA kernels (nvcc) and the host extraction engine (g++)
 at once. Prints phase 11's parity JSON line, the kernels' JSON line (the
-packed kernel's launches summed over phases 7-12 and every rank, the
-rectangular entry point's and its combine kernel's over phases 10-12),
+packed kernel's launches summed over phases 7-13 and every rank, the
+rectangular entry point's and its combine kernel's over phases 10-13),
 the slice's JSON line (with the modes' warm tasks/s, data_s and peak
 device memory under "modes", phase 9's numbers under "cli", phase 10's
-under "mesh" and phase 12's under "measure"), the card's name and power
+under "mesh", phase 12's under "measure" and phase 13's under
+"calibrate"), the card's name and power
 limit, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or the JAX package,
 and neither do its rank processes.
@@ -1838,6 +1855,116 @@ def measure_phase():
     return summary, launches
 
 
+# ---- phase 13: the replica calibrators -------------------------------------
+
+CAL = Path(__file__).resolve().parent / "build" / "chip_smoke_cal"
+PROXY_TOL = 0.002   # a proxy against the plain run's and the JAX script's
+
+
+def checked_hop(errs):
+    """calibrate_replicas' hop through the kernel, each call held against
+    csr_plain on the same input within `rounding_bound`; appends each
+    call's largest difference to errs."""
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    from gmeta_tpu_torch.scripts.calibrate_replicas import hop_gather
+
+    def gather(pair, h):
+        got = hop_gather(pair, h)
+        want = sp.csr_plain(pair.row_ptr, pair.col, h)
+        err = (got - want).abs()
+        over = err - rounding_bound(pair.row_ptr, pair.col, h)
+        assert float(over.max()) <= 0.0, (
+            f"a hop parts from csr_plain by {float(err.max())}, past the "
+            f"rounding bound by {float(over.max())}")
+        errs.append(float(err.max()))
+        return got
+    return gather
+
+
+def proxies(device):
+    """13(a): the five proxies with the kernel, then through csr_plain on
+    the card. Returns (rows, launches of the kernel run)."""
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    from gmeta_tpu_torch.scripts import calibrate_replicas as cr
+
+    errs = []
+    zero_counts()
+    got = cr.run(list(cr.RECIPE_PROXIES), device, gather=checked_hop(errs))
+    launches = {"csr": dict(sp.csr_launches),
+                "combine": dict(sp.combine_launches)}
+    zero_counts()
+    plain = cr.run(list(cr.RECIPE_PROXIES), device,
+                   gather=lambda pair, h: sp.csr_plain(pair.row_ptr,
+                                                       pair.col, h))
+    assert not any(sp.csr_launches.values()), sp.csr_launches
+    graphs = sum(r["graphs"] for r in got.values())
+    split = sum(r["split_rows"] for r in got.values())
+    assert launches["csr"]["fwd"] == 2 * graphs, (launches, graphs)
+    assert launches["combine"]["fwd"] == 2 * sum(
+        r["graphs"] for r in got.values() if r["split_rows"]), launches
+    rows = {}
+    for name, r in got.items():
+        p = plain[name]
+        vals = (r["proto"], r["lda"])
+        for ref, what in (((p["proto"], p["lda"]), "csr_plain"),
+                          (r["jax_cpu"], "the JAX script")):
+            assert all(abs(a - b) <= PROXY_TOL for a, b in zip(vals, ref)), (
+                f"{name}: {vals} against {what}'s {ref}")
+        rows[name] = {**r, "plain": [p["proto"], p["lda"]],
+                      "plain_seconds": p["seconds"]}
+        log(f"  {name}: proto {r['proto']:.4f} lda {r['lda']:.4f} (plain "
+            f"{p['proto']:.4f} {p['lda']:.4f}; JAX {r['jax_cpu'][0]:.4f} "
+            f"{r['jax_cpu'][1]:.4f}); {r['seconds']:.2f} s (plain "
+            f"{p['seconds']:.2f} s); {r['graphs']} graphs, {r['edges']} "
+            f"edges, {r['split_rows']} split rows")
+    log(f"  {len(errs)} hops, largest difference from csr_plain "
+        f"{max(errs):.3g}, all within the rounding bound; {split} split "
+        f"rows; launches {launches}")
+    return rows, max(errs), launches
+
+
+def calibrate_phase(device):
+    """Phase 13: (a) the proxies; (b) one probe row of calibrate_link
+    firstmm_db with --agg sized. Returns (summary, launches)."""
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    from gmeta_tpu_torch.scripts import calibrate_link
+    import torch
+
+    t0 = time.time()
+    rows, max_err, launches = proxies(device)
+    a_s = time.time() - t0
+    shutil.rmtree(CAL, ignore_errors=True)
+    zero_counts()
+    t1 = time.time()
+    try:
+        link = calibrate_link.main([
+            "firstmm_db", "--noises", "0.30", "--betas", "3.5", "--probe",
+            "--agg", "sized", "--device", "cuda", "--out", str(CAL)])
+        sweep = json.loads((CAL / "firstmm_db_sweep.json").read_text())
+        res = json.loads((CAL / "res_firstmm_db_n0.30_b3.50"
+                          / "firstmm_db.json").read_text())
+    finally:
+        shutil.rmtree(CAL, ignore_errors=True)
+    packed = dict(sp.launches)
+    assert packed["fwd"] > 0 and packed["bwd"] > 0, packed
+    launches["packed"] = packed
+    (row,) = link
+    assert sweep["rows"] == link and sweep["target"] == 0.769, sweep
+    assert list(row) == ["noise", "beta", "final", "best", "ref_style"], row
+    assert all(math.isfinite(row[k]) and 0.0 <= row[k] <= 1.0
+               for k in ("final", "best", "ref_style")), row
+    assert res["agg"] == "sized" and res["init_from_jax"], res["agg"]
+    log(f"  calibrate_link firstmm_db probe row {row}; {res['tasks_per_s']}"
+        f" tasks/s, wall {res['wall_s']}; {time.time() - t1:.1f} s; packed "
+        f"launches {packed}")
+    summary = {"proxies": rows, "max_abs_err": max_err, "proxies_s": a_s,
+               "link_row": row, "link_tasks_per_s": res["tasks_per_s"],
+               "link_wall_s": res["wall_s"], "launches": launches,
+               "phase_s": time.time() - t0}
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2005,6 +2132,12 @@ def main():
         f"{l12['packed']}, csr_gather {l12['csr']}, combine "
         f"{l12['combine']}")
 
+    t = phase("13 calibrate: the replica calibrators")
+    calibrate13, l13 = calibrate_phase(device)
+    log(f"  {time.time() - t:.1f} s; kernel launches of phase 13: packed "
+        f"{l13['packed']}, csr_gather {l13['csr']}, combine "
+        f"{l13['combine']}")
+
     kernels = []
     for direction, line in (("fwd", 39), ("bwd", 80)):
         head = timing[(direction, 256)]
@@ -2018,14 +2151,16 @@ def main():
                          + mesh_launches[direction]
                          + packed11[direction]
                          + dry11["packed"][direction]
-                         + l12["packed"][direction]),
+                         + l12["packed"][direction]
+                         + l13["packed"][direction]),
             "launches_by_phase": {"7": main_path[direction],
                                   "8": mode_launches[direction],
                                   "9": cli_launches[direction],
                                   "10": mesh_launches[direction],
                                   "11": packed11[direction]
                                   + dry11["packed"][direction],
-                                  "12": l12["packed"][direction]},
+                                  "12": l12["packed"][direction],
+                                  "13": l13["packed"][direction]},
             "max_abs_err": max(errs[direction]["float32"],
                                head["max_abs_err"]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -2046,10 +2181,11 @@ def main():
             # the edge engine's segment-sum, an XLA op in the JAX package
             "replaces": "gmeta_tpu/parallel/edgepart_train.py:129",
             "launches": (rect_launches[direction] + dry11["csr"][direction]
-                         + l12["csr"][direction]),
+                         + l12["csr"][direction] + l13["csr"][direction]),
             "launches_by_phase": {"10": rect_launches[direction],
                                   "11": dry11["csr"][direction],
-                                  "12": l12["csr"][direction]},
+                                  "12": l12["csr"][direction],
+                                  "13": l13["csr"][direction]},
             "max_abs_err": head["max_abs_err"],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2068,10 +2204,12 @@ def main():
         "replaces": "gmeta_tpu/parallel/edgepart_train.py:129",
         "launches": (sum(combine_launches.values())
                      + sum(dry11["combine"].values())
-                     + sum(l12["combine"].values())),
+                     + sum(l12["combine"].values())
+                     + sum(l13["combine"].values())),
         "launches_by_direction": combine_launches,
         "launches_phase_11": dry11["combine"],
         "launches_phase_12": l12["combine"],
+        "launches_phase_13": l13["combine"],
         **{k: combine_row[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "split_rows", "chunks")},
@@ -2088,7 +2226,8 @@ def main():
         "dense_step_s": dense_s, "step_s_turns": turns,
         "step_peak_gb": peaks, "profile": breakdown,
         "result": dataclasses.asdict(result), "modes": modes, "cli": cli,
-        "mesh": mesh, "measure": measure12, "card": card}}))
+        "mesh": mesh, "measure": measure12, "calibrate": calibrate13,
+        "card": card}}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

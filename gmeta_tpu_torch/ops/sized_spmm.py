@@ -135,8 +135,10 @@ def _check(row_ptr, col, x):
                          f"x of {S * P} rows")
     if S * P >= _MAX_ROWS:
         raise ValueError(f"{S * P} rows exceed the kernel's int32 rows")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in _DTYPE_CODE and not (
+            x.dtype == torch.float64 and x.device.type == "cpu"):
+        raise TypeError(f"x must be float32 or bfloat16 (or float64 on the "
+                        f"CPU), got {x.dtype}")
     if row_ptr.dtype != torch.int32 or col.dtype != torch.int32:
         raise TypeError(f"row_ptr and col must be int32, got "
                         f"{row_ptr.dtype}, {col.dtype}")
@@ -199,13 +201,15 @@ def csr_plain(row_ptr: torch.Tensor, col: torch.Tensor,
               x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of `csr_gather`: out (N, H), N = len(row_ptr)
     - 1, with out[r] = sum of x[col[e]] over e in [row_ptr[r],
-    row_ptr[r+1]), a gather and an index_add_ summed in float32, returned
-    in x's dtype. x may have any number of rows."""
+    row_ptr[r+1]), a gather and an index_add_ summed in float32 (float64
+    for a float64 x), returned in x's dtype. x may have any number of
+    rows."""
     N = row_ptr.shape[0] - 1
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     counts = (row_ptr[1:] - row_ptr[:-1]).long()
     rows = torch.repeat_interleave(counts)        # each edge's output row
-    src = x[col[:rows.numel()].long()].float()
-    out = torch.zeros(N, x.shape[1], dtype=torch.float32, device=x.device)
+    src = x[col[:rows.numel()].long()].to(acc)
+    out = torch.zeros(N, x.shape[1], dtype=acc, device=x.device)
     return out.index_add_(0, rows, src).to(x.dtype)
 
 
@@ -219,8 +223,10 @@ def _check_rect(row_ptr, col, x):
     if max(row_ptr.shape[0] - 1, x.shape[0]) >= _MAX_ROWS:
         raise ValueError(f"{row_ptr.shape[0] - 1} output or {x.shape[0]} "
                          f"table rows exceed the kernel's int32 rows")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in _DTYPE_CODE and not (
+            x.dtype == torch.float64 and x.device.type == "cpu"):
+        raise TypeError(f"x must be float32 or bfloat16 (or float64 on the "
+                        f"CPU), got {x.dtype}")
     if row_ptr.dtype != torch.int32 or col.dtype != torch.int32:
         raise TypeError(f"row_ptr and col must be int32, got "
                         f"{row_ptr.dtype}, {col.dtype}")
@@ -318,7 +324,8 @@ def _check_split(split: RowSplit, row_ptr: torch.Tensor):
 def csr_gather(row_ptr: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
                count: str = "fwd", split: RowSplit = None) -> torch.Tensor:
     """out (len(row_ptr) - 1, H) = the CSR times the table x (rows, H), on
-    x's device: `csr_plain` on the CPU, the full-graph kernel on CUDA,
+    x's device: `csr_plain` on the CPU (which also takes float64), the
+    full-graph kernel on CUDA,
     counted in `csr_launches[count]` ("fwd" or "bwd", the direction the
     caller runs), and where `split` cuts rows, the combine kernel after it,
     counted in `combine_launches[count]`. `split` is the CSR's `row_split`

@@ -1,4 +1,5 @@
-"""The port's measurement scripts, counterparts of the JAX package's
-scripts/bench_*.py; each runs as `python -m gmeta_tpu_torch.scripts.<name>`
-on the card unless given `--device cpu`, and writes its JSON under
-measure_torch/."""
+"""The port's measurement scripts and replica calibrators, counterparts of
+the JAX package's scripts/bench_*.py and scripts/calibrate_*.py; each runs
+as `python -m gmeta_tpu_torch.scripts.<name>` on the card unless given
+`--device cpu`. The measurement scripts write their JSON under
+measure_torch/, the calibrators under parity_torch/cal/."""

@@ -1,11 +1,12 @@
 """The port stands alone: neither gmeta_tpu_torch (its multi-rank modules,
-replicas, parity runner, entry points and measurement scripts included) nor
-its GPU scripts (chip_smoke.py, sweep_sized_spmm.py, chip_ab.py) import jax,
-optax or the JAX package, and neither a port train step, resuming from a
+replicas, parity runner, entry points, measurement scripts and replica
+calibrators included) nor its GPU scripts (chip_smoke.py,
+sweep_sized_spmm.py, chip_ab.py) import jax, optax or the JAX package,
+and neither a port train step, resuming from a
 checkpoint the JAX package wrote, building datasets with the port's C++
 engine, a spawned rank of a mesh, the parity runner's evaluation from a run
-of record's checkpoint, nor a rank of `dryrun_multichip` loads them (nor the
-JAX package's engine library)."""
+of record's checkpoint, a rank of `dryrun_multichip`, nor a replica
+calibrator's main loads them (nor the JAX package's engine library)."""
 
 import ast
 import os
@@ -43,7 +44,8 @@ def test_no_jax_imports_in_port_sources():
                    "utils/cardtime.py", "scripts/common.py",
                    "scripts/bench_kernels.py", "scripts/bench_pallas_spmm.py",
                    "scripts/bench_transfer.py", "scripts/bench_edges.py",
-                   "scripts/bench_edgepart.py"):
+                   "scripts/bench_edgepart.py", "scripts/calibrate_replicas.py",
+                   "scripts/calibrate_fold.py", "scripts/calibrate_link.py"):
         assert f"gmeta_tpu_torch/{module}" in names
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
@@ -204,3 +206,22 @@ def test_dryrun_ranks_load_no_jax():
     from gmeta_tpu_torch.entry import dryrun_multichip
     out = dryrun_multichip(2, device="cpu", timeout=180.0)
     assert out["ranks"] == 2 and out["loaded"] == []
+
+
+CALIBRATE = """
+import sys
+from gmeta_tpu_torch.scripts import calibrate_replicas
+res = calibrate_replicas.main(["firstmm_db", "tree_of_life", "--device",
+                               "cpu", "--out", sys.argv[1]])
+assert res["recipes"]["tree_of_life"]["split_rows"] > 0, res
+loaded = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "optax", "gmeta_tpu"))
+print("LOADED", loaded)
+"""
+
+
+def test_calibrator_main_loads_no_jax(tmp_path):
+    """calibrate_replicas' main (two recipes' proxies through the gather's
+    plain version, split rows included) loads neither jax, optax nor
+    gmeta_tpu."""
+    _run(CALIBRATE.replace("sys.argv[1]", repr(str(tmp_path / "c.json"))))
