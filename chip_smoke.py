@@ -154,11 +154,34 @@ Phases; any failure raises and the script exits non-zero:
                 sweep JSON keys. Launch counts are set to 0 just before
                 and read just after each part: (a) must launch the
                 full-graph body, (b) the packed kernel both ways.
+  14. bench   — the throughput benchmark (gmeta_tpu_torch/bench.py) and
+                the shared-adjacency call. (a) `bench_shape` on the five
+                shapes at full width and the runs of record's geometry
+                (parity/<recipe>.json buckets, fill, pool mode; bf16; 16
+                meta-steps after one warm step and one FLOP-counted step),
+                the record's aggregation (dense in all five) and
+                agg="sized" in turns; launch counts set to 0 just before
+                each sized run and read just after: the packed kernel must
+                launch both ways in every shape. Finite tasks/s, 0 < mfu
+                <= 1, equal FLOPs on both paths, and the first meta-step's
+                loss under sized within TOLS["bfloat16"] of the record
+                aggregation's. Then `bench_extraction` (the device
+                extractor against the C++ engine, 170k nodes, degree 28).
+                (b) `aggregate_sized_shared` on the arxiv pool's first
+                query set (37 bins of 1024), H = 256: driven once at T = 3
+                with counts set to 0 before and read after (one launch
+                each way, the tasks on the kernel's grid); then at T = 3
+                and 32, float32 and bf16, held against sized_plain and
+                bitwise against T launches, forward and gradient, and
+                timed in float32 against the T launches, sized_plain and
+                torch.sparse.mm (on h laid out as rows of T * H), beside
+                its bound at width T * H.
 
 Phase 2 builds the CUDA kernels (nvcc) and the host extraction engine (g++)
-at once. Prints phase 11's parity JSON line, the kernels' JSON line (the
-packed kernel's launches summed over phases 7-13 and every rank, the
-rectangular entry point's and its combine kernel's over phases 10-13),
+at once. Prints phase 11's parity JSON line, phase 14's bench JSON line,
+the kernels' JSON line (the packed kernel's launches summed over phases
+7-14 and every rank, the rectangular entry point's and its combine
+kernel's over phases 10-13, the shared call's from 14(b)),
 the slice's JSON line (with the modes' warm tasks/s, data_s and peak
 device memory under "modes", phase 9's numbers under "cli", phase 10's
 under "mesh", phase 12's under "measure" and phase 13's under
@@ -452,37 +475,20 @@ def dense_learner(trainer, store):
 
 
 def profile_step(step, top=12):
-    """Device time by kernel over one meta-step (`step()` returns its loss
-    on the device) under torch.profiler, and the device's busy share of the
-    step's wall time (profiler on, so the host side is slower than
-    unprofiled). Returns None, and says so, where the profiler records no
-    device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        step().item()
-        wall_us = (time.time() - t0) * 1e6
-    kernels = {}
-    for e in prof.key_averages():
-        if "cuda" not in str(getattr(e, "device_type", "")).lower():
-            continue
-        us = (getattr(e, "self_device_time_total", None)
-              or getattr(e, "self_cuda_time_total", 0))
-        kernels[e.key] = kernels.get(e.key, 0.0) + float(us)
-    busy = sum(kernels.values())
-    if busy <= 0:
+    """`cardtime.profile` of one meta-step (`step()` returns its loss on
+    the device), logged: device time by kernel and the device's busy share
+    of the step's wall time (profiler on). Returns None, and says so, where
+    the profiler records no device time."""
+    from gmeta_tpu_torch.utils.cardtime import profile
+    res = profile(step, top)
+    if res is None:
         log("  profiler: no device time recorded; breakdown not measured")
         return None
-    log(f"  profiled meta-step: wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%)")
-    rows = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
-    for k, us in rows:
-        log(f"    {us / 1e3:9.2f} ms {100 * us / busy:5.1f}%  {k[:90]}")
-    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-            "top": [[k[:90], us / 1e3] for k, us in rows]}
+    log(f"  profiled meta-step: wall {res['wall_ms']:.1f} ms, device busy "
+        f"{res['busy_ms']:.1f} ms ({100 * res['busy_share']:.1f}%)")
+    for k, ms in res["top"]:
+        log(f"    {ms:9.2f} ms {100 * ms / res['busy_ms']:5.1f}%  {k}")
+    return {k: res[k] for k in ("wall_ms", "busy_ms", "top")}
 
 
 def fresh_card():
@@ -1965,6 +1971,158 @@ def calibrate_phase(device):
     return summary, launches
 
 
+# ---- phase 14: the throughput benchmark; the shared-adjacency call ---------
+
+SHARED_TASKS = (3, 32)   # tasks sharing one adjacency, the timed widths
+SHARED_H = 256
+
+
+def bench_phase(device):
+    """14(a): gmeta_tpu_torch/bench.py's `bench_shape` on the five shapes
+    at full width and the record's geometry, the record's aggregation and
+    agg="sized" in turns; launch counts set to 0 just before each sized run
+    and read just after (the packed kernel must launch both ways in every
+    shape). Finite tasks/s, 0 < mfu <= 1, and the first meta-step's loss
+    under sized equal to the record aggregation's within TOLS["bfloat16"]
+    (only the first: 16 bf16 Adam steps may part by rounding alone). Then
+    the extraction bench. Returns (summary, launches, arxiv's data)."""
+    from gmeta_tpu_torch import bench
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    import torch
+
+    rtol, atol = TOLS["bfloat16"]
+    shapes, launches, arxiv = {}, {"fwd": 0, "bwd": 0}, None
+    for name, s in bench.SHAPES.items():
+        data = bench.shape_data(name, s)
+        rec = bench.bench_shape(name, s, device=device, data=data)
+        zero_counts()
+        sized = bench.bench_shape(name, s, agg="sized", device=device,
+                                  data=data)
+        got = dict(sp.launches)
+        assert got["fwd"] > 0 and got["bwd"] > 0, (name, got)
+        for k in launches:
+            launches[k] += got[k]
+        for r in (rec, sized):
+            assert math.isfinite(r["tasks_per_s"]) and r["tasks_per_s"] > 0, r
+            assert r["mfu"] is not None and 0.0 < r["mfu"] <= 1.0, r
+        assert rec["flops_per_step"] == sized["flops_per_step"], (rec, sized)
+        a, b = sized["meta_loss_first"], rec["meta_loss_first"]
+        assert abs(a - b) <= atol + rtol * abs(b), (name, a, b)
+        shapes[name] = dict(rec, sized=sized, sized_launches=got)
+        busy = [None if r["profile"] is None else
+                round(r["profile"]["busy_share"], 3) for r in (rec, sized)]
+        log(f"  {name}: {rec['agg']} {rec['tasks_per_s']:.2f} tasks/s "
+            f"(step {rec['step_s']:.4f} s, mfu {rec['mfu']:.5f}, peak "
+            f"{rec['peak_gb']:.2f} GB, compile {rec['compile_s']:.2f} s); "
+            f"sized {sized['tasks_per_s']:.2f} tasks/s (step "
+            f"{sized['step_s']:.4f} s, mfu {sized['mfu']:.5f}, peak "
+            f"{sized['peak_gb']:.2f} GB); {rec['flops_per_step']:.4g} "
+            f"FLOPs a step, useful {rec['useful_flops']:.4g}; first "
+            f"meta-loss {b:.6f} / {a:.6f}; device busy {busy}; launches "
+            f"{got}")
+        if name == "arxiv":
+            arxiv = data
+        del data
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    extraction = bench.bench_extraction(device)
+    log(f"  extraction {extraction} ({time.time() - t0:.1f} s)")
+    return {"shapes": shapes, "extraction": extraction}, launches, arxiv
+
+
+def shared_phase(arxiv, device):
+    """14(b): `aggregate_sized_shared` on task 0's query set of the bench's
+    arxiv pool (the record's buckets), H = SHARED_H. Driven once at T = 3,
+    forward and backward, launch counts set to 0 just before and read just
+    after: one launch each way. Then, for T in SHARED_TASKS, float32 and
+    bf16, held against sized_plain (TOLS) and bitwise against T launches,
+    forward and gradient; and timed in float32 against the T launches,
+    the plain version and torch.sparse.mm (on h laid out as rows of T * H
+    beforehand), beside `gather_bound` at width T * H. Returns (the
+    kernels line's fields, launches)."""
+    import numpy as np
+    import torch
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+
+    qry = arxiv.tasks.qry
+    B, P = qry.node_gid.shape[-2:]
+    N = B * P
+    edges = [torch.from_numpy(np.ascontiguousarray(getattr(qry, f)[0]))
+             .to(device) for f in ("edge_src", "edge_dst", "edge_mask")]
+    graph = sp.sized_graph(*edges, B, P)
+    nnz = int(graph.row_ptr[-1])
+    row_ptr, col = graph.csr("fwd")
+    read_rows = torch.unique(col[:nnz]).numel()
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def draw(T, dtype):
+        return torch.randn(T, B, P, SHARED_H, device=device,
+                           generator=g).to(dtype)
+
+    zero_counts()
+    h = draw(SHARED_TASKS[0], torch.float32).requires_grad_(True)
+    out = sp.aggregate_sized_shared(graph, h)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    launches = dict(sp.launches)
+    assert launches == {"fwd": 1, "bwd": 1}, launches
+    del h, out
+
+    errs, rows = {"float32": 0.0, "bfloat16": 0.0}, {}
+    for T in SHARED_TASKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).replace("torch.", "")
+            h = draw(T, dtype).requires_grad_(True)
+            got = sp.aggregate_sized_shared(graph, h)
+            want = sp.sized_plain(row_ptr, col, h.detach())
+            rtol, atol = TOLS[tag]
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+            errs[tag] = max(errs[tag],
+                            (got.float() - want.float()).abs().max().item())
+            w = draw(T, dtype)
+            (grad,) = torch.autograd.grad(got, h, w)
+            for t in range(T):
+                assert torch.equal(got[t], sp.launch("fwd", graph,
+                                                     h[t].detach()))
+                assert torch.equal(grad[t], sp.launch("bwd", graph, w[t]))
+            del got, want, grad, w
+            if dtype != torch.float32:
+                continue
+            x = h.detach()
+            sparse = torch.sparse_csr_tensor(
+                row_ptr, col[:nnz], torch.ones(nnz, device=device),
+                size=(N, N), check_invariants=False)
+            wide = x.permute(1, 2, 0, 3).reshape(N, T * SHARED_H)
+            torch.testing.assert_close(      # the yardstick's function
+                torch.sparse.mm(sparse, wide).view(B, P, T, SHARED_H)
+                .permute(2, 0, 1, 3), sp.aggregate_sized_shared(graph, x),
+                rtol=rtol, atol=atol)
+            row = timed_row(lambda: sp.aggregate_sized_shared(graph, x),
+                            lambda: sp.sized_plain(row_ptr, col, x),
+                            lambda: torch.sparse.mm(sparse, wide),
+                            nnz, T * SHARED_H, read_rows, N)
+            row["separate_ms"] = cuda_ms(
+                lambda: [sp.launch("fwd", graph, x[t]) for t in range(T)])
+            rows[T] = row
+            log(f"  shared T={T} H={SHARED_H}: {row['ms']:.3f} ms, {T} "
+                f"launches {row['separate_ms']:.3f} ms, plain "
+                f"{row['plain_ms']:.3f} ms, torch.sparse.mm "
+                f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+                f"({row['bound_by']})")
+            del x, sparse, wide
+        torch.cuda.empty_cache()
+    head = rows[SHARED_TASKS[0]]
+    fields = {"max_abs_err": errs["float32"],
+              "max_abs_err_bf16": errs["bfloat16"],
+              **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+              "separate_ms": head["separate_ms"],
+              "shape": f"S={B} P={P} nnz={nnz} shared by T="
+                       f"{SHARED_TASKS[0]} H={SHARED_H} float32",
+              "by_T": {str(T): r for T, r in rows.items()}}
+    return fields, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2138,6 +2296,18 @@ def main():
         f"{l13['packed']}, csr_gather {l13['csr']}, combine "
         f"{l13['combine']}")
 
+    t = phase("14 bench: the throughput benchmark's five shapes; the "
+              "shared-adjacency call")
+    bench14, l14, arxiv14 = bench_phase(device)
+    t1 = time.time()
+    shared14, shared_launches = shared_phase(arxiv14, device)
+    del arxiv14
+    bench14.update(phase_s=time.time() - t, shared_s=time.time() - t1,
+                   launches=l14)
+    log(f"  {time.time() - t:.1f} s; kernel launches of phase 14: packed "
+        f"{l14}, the shared call {shared_launches}")
+    log(json.dumps({"bench": bench14}))
+
     kernels = []
     for direction, line in (("fwd", 39), ("bwd", 80)):
         head = timing[(direction, 256)]
@@ -2152,7 +2322,7 @@ def main():
                          + packed11[direction]
                          + dry11["packed"][direction]
                          + l12["packed"][direction]
-                         + l13["packed"][direction]),
+                         + l13["packed"][direction] + l14[direction]),
             "launches_by_phase": {"7": main_path[direction],
                                   "8": mode_launches[direction],
                                   "9": cli_launches[direction],
@@ -2160,7 +2330,8 @@ def main():
                                   "11": packed11[direction]
                                   + dry11["packed"][direction],
                                   "12": l12["packed"][direction],
-                                  "13": l13["packed"][direction]},
+                                  "13": l13["packed"][direction],
+                                  "14": l14[direction]},
             "max_abs_err": max(errs[direction]["float32"],
                                head["max_abs_err"]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -2215,6 +2386,16 @@ def main():
             "library_ms", "split_rows", "chunks")},
         "shape": f"{rect_shapes['powerlaw']} forward, H={combine_row['H']}"
                  f" float32",
+    })
+    kernels.append({
+        "name": "sized_spmm_shared",
+        "route": "cuda",
+        "source": "gmeta_tpu_torch/csrc/sized_spmm.cu",
+        # the batching rule of a task-invariant adjacency over _fwd_kernel
+        "replaces": "gmeta_tpu/ops/pallas_spmm.py:254",
+        "launches": shared_launches["fwd"],
+        "launches_by_direction": shared_launches,
+        **shared14,
     })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"slice": {

@@ -22,7 +22,10 @@
 //   all of H, and the grid walks the rows in order: the blocks in flight
 //   cover a few consecutive bins, whose x rows (1 MB per bin at H = 256
 //   float32) stay in the 50 MB L2 while the bins' edges gather from them,
-//   so x is read from device memory about once.
+//   so x is read from device memory about once. T tasks that share one
+//   graph (the JAX batching rule of a task-invariant adjacency) take the
+//   grid's y dimension: one launch, each task's rows walked as one task's
+//   are, and no copy of x into rows of T x H.
 // - `csr_slab_kernel` and `csr_combine_kernel` (entries gmeta_csr_slab,
 //   gmeta_csr_combine) serve the rectangular entry point `csr_gather`,
 //   which the edge engine runs over the whole graph. There the row-order
@@ -172,12 +175,20 @@ struct Vec<__nv_bfloat16, 1> {
   }
 };
 
-template <typename T, int VEC>
+// TASKS: the grid's y dimension picks one of several tasks that share the
+// graph, laid out N x H elements apart in x and in out. One task's launch
+// is built without that offset, which cost it 3-4% at float32.
+template <typename T, int VEC, bool TASKS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     csr_gather_kernel(const int* __restrict__ row_ptr,
                       const int* __restrict__ col, const T* __restrict__ x,
                       T* __restrict__ out, int N, int H, int G) {
   constexpr int CPL = cpl<VEC>();
+  if constexpr (TASKS) {
+    const size_t task = static_cast<size_t>(blockIdx.y) * N * H;
+    x += task;
+    out += task;
+  }
   const long long r =
       (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) / G;
   const int lane = threadIdx.x % G;
@@ -219,26 +230,33 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
 template <typename T, int VEC>
 void launch_vec(const int* row_ptr, const int* col, const void* x, void* out,
-                int N, int H, cudaStream_t stream) {
+                int N, int H, int tasks, cudaStream_t stream) {
   const int nv = H / VEC;
   int G = 1;  // lanes per row: the fewest that cover H in cpl vectors each
   while (G < 32 && G * cpl<VEC>() < nv) G *= 2;
   const int rows = THREADS / G;
-  const unsigned blocks = static_cast<unsigned>((N + rows - 1) / rows);
-  csr_gather_kernel<T, VEC><<<blocks, THREADS, 0, stream>>>(
-      row_ptr, col, static_cast<const T*>(x), static_cast<T*>(out), N, H, G);
+  const dim3 blocks(static_cast<unsigned>((N + rows - 1) / rows),
+                    static_cast<unsigned>(tasks));
+  if (tasks > 1)
+    csr_gather_kernel<T, VEC, true><<<blocks, THREADS, 0, stream>>>(
+        row_ptr, col, static_cast<const T*>(x), static_cast<T*>(out), N, H,
+        G);
+  else
+    csr_gather_kernel<T, VEC, false><<<blocks, THREADS, 0, stream>>>(
+        row_ptr, col, static_cast<const T*>(x), static_cast<T*>(out), N, H,
+        G);
 }
 
 template <typename T>
 void launch(const int* row_ptr, const int* col, const void* x, void* out,
-            int N, int H, cudaStream_t stream) {
+            int N, int H, int tasks, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (H % VEC == 0 && aligned)
-    launch_vec<T, VEC>(row_ptr, col, x, out, N, H, stream);
+    launch_vec<T, VEC>(row_ptr, col, x, out, N, H, tasks, stream);
   else
-    launch_vec<T, 1>(row_ptr, col, x, out, N, H, stream);
+    launch_vec<T, 1>(row_ptr, col, x, out, N, H, tasks, stream);
 }
 
 // ---- the full-graph bodies: column slabs, heavy rows split ------------------
@@ -393,17 +411,20 @@ int launch_slab(const int* row_ptr, const int* col, const void* x, void* out,
 }  // namespace
 
 // out (N, H) = the CSR (row_ptr (N + 1,), col) times x (N, H), both int32
-// indices; dtype: 0 = float32, 1 = bfloat16 (x and out share it).
+// indices, for each of `tasks` (x, out) pairs that share the CSR, laid out
+// (tasks, N, H): one launch, the tasks on the grid's y dimension (at most
+// 65535); dtype: 0 = float32, 1 = bfloat16 (x and out share it).
 // Returns cudaGetLastError() after the launch: 0 when it was accepted.
 extern "C" int gmeta_sized_spmm(const int* row_ptr, const int* col,
                                 const void* x, void* out, int N, int H,
-                                int dtype, void* stream) {
-  if (N > 0 && H > 0) {
+                                int tasks, int dtype, void* stream) {
+  if (tasks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (N > 0 && H > 0 && tasks > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
-      launch<float>(row_ptr, col, x, out, N, H, st);
+      launch<float>(row_ptr, col, x, out, N, H, tasks, st);
     else if (dtype == 1)
-      launch<__nv_bfloat16>(row_ptr, col, x, out, N, H, st);
+      launch<__nv_bfloat16>(row_ptr, col, x, out, N, H, tasks, st);
     else
       return static_cast<int>(cudaErrorInvalidValue);
   }

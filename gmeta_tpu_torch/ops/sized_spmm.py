@@ -16,6 +16,11 @@ directions. The CSRs hold exactly the edges `densify` would add up, so on
 packed data, where no edge touches a dead row, both directions equal the
 full product with dead rows zero (the JAX `sized_reference`).
 
+`aggregate_sized_shared` is the JAX batching rule for an adjacency that T
+tasks share (pallas_spmm.py:254-264): h (T, S, P, H) goes through one
+launch, the tasks on the kernel's grid, with no copy of the graph and none
+of h.
+
 The rectangular entry point, `csr_gather`, computes the same function into
 out (len(row_ptr) - 1, H) from a table x of any height, through the
 kernel's full-graph body: slabs of columns sized to the card's L2
@@ -32,7 +37,8 @@ launches the kernel, and any other device raises. There is no fallback from
 the kernel to the plain version. `launches` counts the packed path's kernel
 launches per direction, `csr_launches` the rectangular entry point's and
 `combine_launches` its combine kernel's, so a run can show which of its
-paths went through which kernel.
+paths went through which kernel. Within `spmm.count_aggregation`, every
+`launch` (kernel or plain version) also adds its call to the tally.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from gmeta_tpu_torch.ops import cuda_build
+from gmeta_tpu_torch.ops import cuda_build, spmm
 
 # Kernel launches per direction; only a CUDA launch adds to them.
 launches = {"fwd": 0, "bwd": 0}        # packed sets (launch)
@@ -53,6 +59,7 @@ combine_launches = {"fwd": 0, "bwd": 0}   # csr_gather's split rows
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROWS = 2**31 - 512   # int32 row indices, with a block's overhang
+_MAX_TASKS = 65535        # tasks sharing a graph: the grid's y dimension
 CHUNK = 128     # csr_gather splits rows of more edges (sweep_sized_spmm.py)
 
 
@@ -115,21 +122,26 @@ def sized_plain(row_ptr: torch.Tensor, col: torch.Tensor,
     """Plain PyTorch version of the kernel: out (S, P, H) with
     out.view(N, H)[r] = sum of x.view(N, H)[col[e]] over e in
     [row_ptr[r], row_ptr[r+1]), a gather and an index_add_ summed in
-    float32, returned in x's dtype."""
-    S, P, H = x.shape
+    float32, returned in x's dtype. x (T, S, P, H) holds T tasks that
+    share the graph: the same for each."""
+    S, P, H = x.shape[-3:]
     counts = (row_ptr[1:] - row_ptr[:-1]).long()
     rows = torch.repeat_interleave(counts)        # each edge's output row
-    src = x.reshape(S * P, H)[col[:rows.numel()].long()].float()
-    out = torch.zeros(S * P, H, dtype=torch.float32, device=x.device)
-    return out.index_add_(0, rows, src).view(S, P, H).to(x.dtype)
+    xt = x.reshape(-1, S * P, H)
+    src = xt[:, col[:rows.numel()].long()].float()
+    out = torch.zeros(xt.shape, dtype=torch.float32, device=x.device)
+    return out.index_add_(1, rows, src).view(x.shape).to(x.dtype)
 
 
 def _check(row_ptr, col, x):
-    if x.dim() != 3 or row_ptr.dim() != 1 or col.dim() != 1:
-        raise ValueError(f"want x (S,P,H), row_ptr (N+1,), col (nnz,); got "
-                         f"{tuple(x.shape)}, {tuple(row_ptr.shape)}, "
-                         f"{tuple(col.shape)}")
-    S, P, H = x.shape
+    if x.dim() not in (3, 4) or row_ptr.dim() != 1 or col.dim() != 1:
+        raise ValueError(f"want x ([T,] S, P, H), row_ptr (N+1,), col "
+                         f"(nnz,); got {tuple(x.shape)}, "
+                         f"{tuple(row_ptr.shape)}, {tuple(col.shape)}")
+    S, P, H = x.shape[-3:]
+    if x.dim() == 4 and not 0 < x.shape[0] <= _MAX_TASKS:
+        raise ValueError(f"{x.shape[0]} tasks: the kernel takes 1 to "
+                         f"{_MAX_TASKS}")
     if row_ptr.shape[0] != S * P + 1:
         raise ValueError(f"row_ptr has {row_ptr.shape[0]} entries for "
                          f"x of {S * P} rows")
@@ -151,7 +163,7 @@ def _lib():
     lib = cuda_build.load("sized_spmm")
     fn = lib.gmeta_sized_spmm
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -165,32 +177,40 @@ def _check_devices(row_ptr, col, x):
         raise ValueError(f"sized_spmm runs on cpu or cuda, not {x.device}")
 
 
-def _run_kernel(row_ptr, col, x, out, n_rows: int, what: str):
+def _run_kernel(row_ptr, col, x, out, n_rows: int, what: str,
+                tasks: int = 1):
     """Launch the gather kernel for `n_rows` output rows of out on x's
-    device and current stream; raises if the launch was refused."""
+    device and current stream, for each of `tasks` (x, out) pairs laid out
+    (tasks, n_rows, H); raises if the launch was refused."""
     H = x.shape[-1]
     fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(row_ptr.data_ptr(), col.data_ptr(), x.data_ptr(),
-                 out.data_ptr(), n_rows, H, _DTYPE_CODE[x.dtype], stream)
+                 out.data_ptr(), n_rows, H, tasks, _DTYPE_CODE[x.dtype],
+                 stream)
     if err != 0:
         raise RuntimeError(f"sized_spmm {what} kernel launch failed "
-                           f"(CUDA error {err}) at N={n_rows} H={H} {x.dtype}")
+                           f"(CUDA error {err}) at N={n_rows} H={H} "
+                           f"tasks={tasks} {x.dtype}")
 
 
 def launch(direction: str, graph: SizedGraph, x: torch.Tensor) -> torch.Tensor:
-    """Run one direction ("fwd" or "bwd") of the graph on x (S, P, H), on
-    x's device: the plain version on the CPU, the kernel on CUDA (counted in
+    """Run one direction ("fwd" or "bwd") of the graph on x (S, P, H), or
+    on x (T, S, P, H) for T tasks that share it, on x's device: the plain
+    version on the CPU, one kernel launch on CUDA (counted in
     `launches`)."""
     row_ptr, col = graph.csr(direction)
     _check_devices(row_ptr, col, x)
     _check(row_ptr, col, x)
+    S, P, H = x.shape[-3:]
+    tasks = x.shape[0] if x.dim() == 4 else 1
+    if spmm.tally is not None:
+        spmm.tally.add(S, P, tasks * H, row_ptr[-1])
     if x.device.type == "cpu":
         return sized_plain(row_ptr, col, x)
-    S, P, H = x.shape
     out = torch.empty_like(x)
-    _run_kernel(row_ptr, col, x, out, S * P, direction)
+    _run_kernel(row_ptr, col, x, out, S * P, direction, tasks)
     launches[direction] += 1
     return out
 
@@ -518,3 +538,12 @@ def aggregate_sized(graph: SizedGraph, h: torch.Tensor) -> torch.Tensor:
 def aggregate_sized_t(graph: SizedGraph, g: torch.Tensor) -> torch.Tensor:
     """(S, P, H) = A^T @ g."""
     return SizedAggT.apply(graph, g)
+
+
+def aggregate_sized_shared(graph: SizedGraph, h: torch.Tensor) -> torch.Tensor:
+    """(T, S, P, H) = A @ h[t] for each of T tasks that share the graph of
+    S * P rows: one SizedAgg call, one launch on CUDA with the tasks on
+    the kernel's grid. The gradient is one SizedAggT launch."""
+    if h.dim() != 4:
+        raise ValueError(f"want h (T, S, P, H), got {tuple(h.shape)}")
+    return SizedAgg.apply(graph, h)

@@ -19,12 +19,57 @@ a Pallas kernel), so plain PyTorch is their counterpart here:
 The edge-partitioned engine (parallel/edgepart_train.py) aggregates with
 `ops/sized_spmm.py` `csr_gather` over CSRs built on the host, not with
 these.
+
+`count_aggregation` tallies the work of the packed aggregations, dense and
+sized, that run within it (bench.py's FLOP count).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass
+class AggregationWork:
+    """The aggregation calls tallied by `count_aggregation`, each direction
+    a call: `flops` at the TPU kernel's own cost estimate, 2 S P^2 H a call
+    over S blocks of P rows and H features (gmeta_tpu/ops/pallas_spmm.py:
+    159-162), which is also what torch.bmm over the dense blocks does;
+    `useful` at 2 nnz H, nnz the call's live edges (duplicates counted)."""
+    flops: int = 0
+    edges: list = dataclasses.field(default_factory=list)  # (nnz, H)
+
+    def add(self, S: int, P: int, H: int, nnz: torch.Tensor):
+        """A call; nnz a 0-d tensor, read only by `useful`."""
+        self.flops += 2 * S * P * P * H
+        self.edges.append((nnz, H))
+
+    @property
+    def useful(self) -> int:
+        return sum(2 * int(nnz) * H for nnz, H in self.edges)
+
+
+tally = None   # the AggregationWork of the active count_aggregation
+
+
+@contextlib.contextmanager
+def count_aggregation():
+    """Within the block, every `aggregate_dense` call adds to the yielded
+    AggregationWork, and so does its transpose in the backward (a hook on
+    the call's output); so does every `sized_spmm.launch`, either
+    direction, kernel or plain version. For counting outside timed runs."""
+    global tally
+    if tally is not None:
+        raise RuntimeError("count_aggregation does not nest")
+    tally = AggregationWork()
+    try:
+        yield tally
+    finally:
+        tally = None
 
 
 def densify(edge_src: torch.Tensor, edge_dst: torch.Tensor,
@@ -60,8 +105,16 @@ def aggregate_dense(A: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     A: (S, P, P), h: (S, P, H). Accumulates in float32 and returns float32,
     as the reference's preferred_element_type does."""
     if A.dtype == torch.float32 and h.dtype == torch.float32:
-        return torch.bmm(A, h)
-    return torch.bmm(A.float(), h.float())
+        out = torch.bmm(A, h)
+    else:
+        out = torch.bmm(A.float(), h.float())
+    if tally is not None:
+        work, (S, P, H) = tally, h.shape
+        nnz = A.sum(dtype=torch.float64)
+        work.add(S, P, H, nnz)
+        if out.requires_grad:
+            out.register_hook(lambda g: work.add(S, P, H, nnz))
+    return out
 
 
 def degrees_from_dense(A: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,10 @@
 - `rounding_bound`: how far two sums of one CSR row, in two orders, can
   part.
 
+- `rates_apply`: whether those rates describe a device (bench.py's `mfu`).
+- `profile`: the card's busy share of one call and its device time by
+  kernel, under `torch.profiler`.
+
 The peak rates are the H100 SXM's (NVIDIA's data sheet, dense, at its
 700 W limit): float32 outside the tensor cores, bf16 on the tensor cores,
 and the HBM3's bandwidth. A card set below 700 W runs slower under load,
@@ -32,6 +36,16 @@ import torch
 FP32_PEAK = 67e12      # H100 SXM float32 FLOP/s outside the tensor cores
 BF16_PEAK = 989e12     # H100 SXM bf16 tensor-core FLOP/s, dense
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory
+CARD = "NVIDIA H100 80GB HBM3"   # the H100 SXM's name in torch.cuda
+
+
+def rates_apply(device) -> bool:
+    """Whether the peak rates above are this device's: a CUDA device that
+    names itself as the H100 SXM does (not the CPU, nor an H100 PCIe or
+    NVL, whose peaks are lower)."""
+    device = torch.device(device)
+    return (device.type == "cuda"
+            and torch.cuda.get_device_name(device) == CARD)
 
 
 def card_line() -> str:
@@ -106,6 +120,37 @@ def sync(device):
     """Wait for the work queued on a CUDA device; nothing elsewhere."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def profile(step, top=12):
+    """Device time by kernel over one call of `step()` (which returns a
+    tensor on the card) under torch.profiler, and the card's busy share of
+    the call's wall time (the profiler slows the host side, so the share is
+    a lower bound of the unprofiled one). Returns {"wall_ms", "busy_ms",
+    "busy_share", "top": [[kernel, ms], ...]}, or None where the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step().cpu()
+        wall_us = (time.time() - t0) * 1e6
+    kernels = {}
+    for e in prof.key_averages():
+        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0))
+        kernels[e.key] = kernels.get(e.key, 0.0) + float(us)
+    busy = sum(kernels.values())
+    if busy <= 0:
+        return None
+    rows = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / wall_us,
+            "top": [[k[:90], us / 1e3] for k, us in rows]}
 
 
 def gather_bound(nnz, H, read_rows, n_out, itemsize=4):

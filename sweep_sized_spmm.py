@@ -102,7 +102,7 @@ def build(index, subs, prefix="v"):
             for line in (r.stdout + r.stderr).splitlines() if "Used " in line]
     lib = ctypes.CDLL(str(so))
     fn = lib.gmeta_sized_spmm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn, regs, lib
@@ -139,7 +139,7 @@ def sweep_packed():
 
             def run():
                 err = fn(graph.row_ptr.data_ptr(), graph.col.data_ptr(),
-                         x.data_ptr(), out.data_ptr(), N, H, codes[dt],
+                         x.data_ptr(), out.data_ptr(), N, H, 1, codes[dt],
                          stream)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")

@@ -93,6 +93,38 @@ def test_kernels_match_plain(cuda, H, dtype):
             assert torch.equal(got, torch.bmm(At, x))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T, H", [(1, 5), (3, 128), (32, 8)])
+def test_shared_call_matches_plain_and_separate_launches(cuda, T, H, dtype):
+    """aggregate_sized_shared: one forward launch at width T * H for T
+    tasks over one graph, equal to sized_plain at that width and to T
+    launches at width H (exact: integer inputs), and its gradient (one
+    transposed launch) to the T transposed launches'."""
+    sizes = [0, 1, 127, 129, 512]
+    graph, x, _ = _packed(512, sizes, T * H, dtype, cuda, seed=T)
+    h = x.view(len(sizes), 512, T, H).permute(2, 0, 1, 3).contiguous()
+    h.requires_grad_(True)
+    before = dict(sized_spmm.launches)
+    got = sized_spmm.aggregate_sized_shared(graph, h)
+    torch.cuda.synchronize()
+    assert sized_spmm.launches["fwd"] == before["fwd"] + 1
+    assert got.shape == h.shape and got.dtype == dtype
+    plain = sized_spmm.sized_plain(*graph.csr("fwd"),
+                                   h.detach().permute(1, 2, 0, 3)
+                                   .reshape(len(sizes), 512, T * H))
+    assert torch.equal(got.permute(1, 2, 0, 3).reshape(plain.shape), plain)
+    for t in range(T):
+        assert torch.equal(got[t], sized_spmm.launch("fwd", graph,
+                                                     h[t].detach()))
+    w = torch.from_numpy(np.random.RandomState(T).randint(
+        -4, 5, tuple(h.shape)).astype(np.float32)).to(cuda, dtype)
+    before = dict(sized_spmm.launches)
+    (g,) = torch.autograd.grad((got * w).float().sum(), h)
+    assert sized_spmm.launches["bwd"] == before["bwd"] + 1
+    for t in range(T):
+        assert torch.equal(g[t], sized_spmm.launch("bwd", graph, w[t]))
+
+
 def test_misaligned_input_matches_plain(cuda):
     """x at a 4-byte offset cannot take 16-byte loads: the scalar path."""
     graph, x, _ = _packed(256, [256, 100], 128, torch.float32, cuda)

@@ -1,6 +1,6 @@
 """The port stands alone: neither gmeta_tpu_torch (its multi-rank modules,
-replicas, parity runner, entry points, measurement scripts and replica
-calibrators included) nor its GPU scripts (chip_smoke.py,
+replicas, parity runner, entry points, measurement scripts, replica
+calibrators and benchmark included) nor its GPU scripts (chip_smoke.py,
 sweep_sized_spmm.py, chip_ab.py) import jax, optax or the JAX package,
 and neither a port train step, resuming from a
 checkpoint the JAX package wrote, building datasets with the port's C++
@@ -41,6 +41,7 @@ def test_no_jax_imports_in_port_sources():
         assert f"gmeta_tpu_torch/parallel/{module}.py" in names
     assert "gmeta_tpu_torch/run/edgepart.py" in names
     for module in ("data/replicas.py", "run/parity.py", "entry.py",
+                   "bench.py", "scripts/bench_window.py",
                    "utils/cardtime.py", "scripts/common.py",
                    "scripts/bench_kernels.py", "scripts/bench_pallas_spmm.py",
                    "scripts/bench_transfer.py", "scripts/bench_edges.py",
