@@ -162,7 +162,11 @@ Phases; any failure raises and the script exits non-zero:
                 the record's aggregation (dense in all five) and
                 agg="sized" in turns; launch counts set to 0 just before
                 each sized run and read just after: the packed kernel must
-                launch both ways in every shape. Finite tasks/s, 0 < mfu
+                launch both ways in every shape, in bf16, and where layer
+                1 aggregates first (every shape but fold_ppi, which
+                projects 512 -> 128 first) forward in float32 too (layer
+                1's input stays float32, as JAX's promotion keeps it);
+                fold_ppi launches only bf16. Finite tasks/s, 0 < mfu
                 <= 1, equal FLOPs on both paths, and the first meta-step's
                 loss under sized within TOLS["bfloat16"] of the record
                 aggregation's. Then `bench_extraction` (the device
@@ -885,7 +889,8 @@ def zero_counts():
     from gmeta_tpu_torch.ops import sized_spmm as sp
     from gmeta_tpu_torch.parallel import collectives
     for counts in (sp.launches, sp.csr_launches, sp.combine_launches,
-                   collectives.seconds, collectives.calls):
+                   *sp.launches_by_dtype.values(), collectives.seconds,
+                   collectives.calls):
         for k in counts:
             counts[k] = 0
 
@@ -1703,10 +1708,13 @@ def eval_parity(name, device):
     assert launches["fwd"] > 0 and launches["bwd"] > 0, launches
     for agg, res in out["passes"].items():
         assert res["agg"] == agg, res["agg"]
+        # every task's accuracy equal, up to float32 rounding of the mean
+        same = res["max_task_diff"] < out["one_query"] / 2
         log(f"  {name} {agg}: {json.dumps(res['acc'])}; vs JAX CPU "
             f"{json.dumps(res['vs_jax_cpu'])}; max per-task diff "
             f"{res['max_task_diff']:.4f} (one query "
-            f"{out['one_query']:.4f}); {res['eval_s']:.1f} s; "
+            f"{out['one_query']:.4f}; task for task: "
+            f"{'yes' if same else 'no'}); {res['eval_s']:.1f} s; "
             f"launches {res['launches']}")
         del res["curves_last"], res["curves_best"]
     gc.collect()
@@ -1982,16 +1990,19 @@ def bench_phase(device):
     at full width and the record's geometry, the record's aggregation and
     agg="sized" in turns; launch counts set to 0 just before each sized run
     and read just after (the packed kernel must launch both ways in every
-    shape). Finite tasks/s, 0 < mfu <= 1, and the first meta-step's loss
-    under sized equal to the record aggregation's within TOLS["bfloat16"]
-    (only the first: 16 bf16 Adam steps may part by rounding alone). Then
-    the extraction bench. Returns (summary, launches, arxiv's data)."""
+    shape, in bf16, and forward in float32 exactly where layer 1
+    aggregates first: feat <= hidden). Finite tasks/s, 0 < mfu <= 1, and
+    the first meta-step's loss under sized equal to the record
+    aggregation's within TOLS["bfloat16"] (only the first: 16 bf16 Adam
+    steps may part by rounding alone). Then the extraction bench. Returns
+    (summary, launches, arxiv's data)."""
     from gmeta_tpu_torch import bench
     from gmeta_tpu_torch.ops import sized_spmm as sp
     import torch
 
     rtol, atol = TOLS["bfloat16"]
     shapes, launches, arxiv = {}, {"fwd": 0, "bwd": 0}, None
+    by_dtype = {t: {"fwd": 0, "bwd": 0} for t in sp.launches_by_dtype}
     for name, s in bench.SHAPES.items():
         data = bench.shape_data(name, s)
         rec = bench.bench_shape(name, s, device=device, data=data)
@@ -1999,16 +2010,28 @@ def bench_phase(device):
         sized = bench.bench_shape(name, s, agg="sized", device=device,
                                   data=data)
         got = dict(sp.launches)
+        split = {t: dict(v) for t, v in sp.launches_by_dtype.items()}
         assert got["fwd"] > 0 and got["bwd"] > 0, (name, got)
+        assert all(split["bfloat16"].values()), (name, split)
+        # layer 1 aggregates first where it does not shrink the width
+        # (models/gcn.py); its float32 input gets no gradient
+        f32 = split["float32"]
+        if s["feat"] <= s["hidden"]:
+            assert f32["fwd"] > 0 and f32["bwd"] == 0, (name, split)
+        else:
+            assert f32 == {"fwd": 0, "bwd": 0}, (name, split)
         for k in launches:
             launches[k] += got[k]
+            for t in by_dtype:
+                by_dtype[t][k] += split[t][k]
         for r in (rec, sized):
             assert math.isfinite(r["tasks_per_s"]) and r["tasks_per_s"] > 0, r
             assert r["mfu"] is not None and 0.0 < r["mfu"] <= 1.0, r
         assert rec["flops_per_step"] == sized["flops_per_step"], (rec, sized)
         a, b = sized["meta_loss_first"], rec["meta_loss_first"]
         assert abs(a - b) <= atol + rtol * abs(b), (name, a, b)
-        shapes[name] = dict(rec, sized=sized, sized_launches=got)
+        shapes[name] = dict(rec, sized=sized, sized_launches=got,
+                            sized_launches_by_dtype=split)
         busy = [None if r["profile"] is None else
                 round(r["profile"]["busy_share"], 3) for r in (rec, sized)]
         log(f"  {name}: {rec['agg']} {rec['tasks_per_s']:.2f} tasks/s "
@@ -2019,7 +2042,7 @@ def bench_phase(device):
             f"{sized['peak_gb']:.2f} GB); {rec['flops_per_step']:.4g} "
             f"FLOPs a step, useful {rec['useful_flops']:.4g}; first "
             f"meta-loss {b:.6f} / {a:.6f}; device busy {busy}; launches "
-            f"{got}")
+            f"{got}, by dtype {split}")
         if name == "arxiv":
             arxiv = data
         del data
@@ -2027,7 +2050,8 @@ def bench_phase(device):
     t0 = time.time()
     extraction = bench.bench_extraction(device)
     log(f"  extraction {extraction} ({time.time() - t0:.1f} s)")
-    return {"shapes": shapes, "extraction": extraction}, launches, arxiv
+    return ({"shapes": shapes, "extraction": extraction,
+             "launches_by_dtype": by_dtype}, launches, arxiv)
 
 
 def shared_phase(arxiv, device):
@@ -2341,6 +2365,9 @@ def main():
             "shape": f"{qry_shape} H=256 float32",
             "max_abs_err_bf16": errs[direction]["bfloat16"],
             "launches_per_meta_step": per_step[direction],
+            "launches_by_dtype_phase_14": {
+                t: v[direction]
+                for t, v in bench14["launches_by_dtype"].items()},
             "by_H": {str(H): timing[(direction, H)] for H in (128, 256)},
         })
     for direction in ("fwd", "bwd"):

@@ -1,10 +1,10 @@
 """Typed configuration with per-dataset presets.
 
-Mirrors the reference's 22 argparse flags (G-Meta/train.py:152-177) as a typed
-dataclass, fixing its string-boolean quirks (`--task_mode True`,
-`--link_pred_mode True` as *strings*, G-Meta/train.py:50,74) while keeping the
-same semantics. The five presets reproduce the README recipes
-(G-Meta/README.md:66-179).
+Mirrors the reference's argparse flags (G-Meta/train.py:152-177), 21 live
+ones and 4 dead ones dropped (MIGRATION.md), as a typed dataclass, fixing
+its string-boolean quirks (`--task_mode True`, `--link_pred_mode True` as
+*strings*, G-Meta/train.py:50,74) while keeping the same semantics. The
+five presets reproduce the README recipes (G-Meta/README.md:66-179).
 
 The fields, defaults and presets are those of the JAX package's config, so a
 flag means the same thing to both packages; every field's feature runs in

@@ -114,9 +114,14 @@ def _bias(b, ndim):
 
 def gather_features(sg: SubgraphSet, feats: torch.Tensor,
                     compute_dtype=torch.float32) -> torch.Tensor:
-    """(T, B, P, F) rows of the global feature table, pad slots zeroed."""
-    h = feats[sg.node_gid.long()] * sg.node_mask[..., None]
-    return h.to(compute_dtype)
+    """(T, B, P, F) rows of the global feature table, pad slots zeroed.
+    The rows are cast to the compute dtype and then multiplied by the
+    float32 mask, so in bf16 mode the result is float32 holding
+    bf16-rounded values, as JAX's type promotion makes it
+    (gmeta_tpu/models/gcn.py:96): the first layer's `h * norm`, product and
+    aggregation then run in float32, and only its output is cast to bf16."""
+    return feats[sg.node_gid.long()].to(compute_dtype) * \
+        sg.node_mask[..., None]
 
 
 def precompute(sg: SubgraphSet, compute_dtype=torch.float32,

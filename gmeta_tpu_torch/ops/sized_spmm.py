@@ -37,7 +37,8 @@ launches the kernel, and any other device raises. There is no fallback from
 the kernel to the plain version. `launches` counts the packed path's kernel
 launches per direction, `csr_launches` the rectangular entry point's and
 `combine_launches` its combine kernel's, so a run can show which of its
-paths went through which kernel. Within `spmm.count_aggregation`, every
+paths went through which kernel (`launches_by_dtype` splits the packed
+path's by the dtype of x). Within `spmm.count_aggregation`, every
 `launch` (kernel or plain version) also adds its call to the tally.
 """
 
@@ -54,6 +55,10 @@ from gmeta_tpu_torch.ops import cuda_build, spmm
 
 # Kernel launches per direction; only a CUDA launch adds to them.
 launches = {"fwd": 0, "bwd": 0}        # packed sets (launch)
+# the same launches split by the dtype of x: a bf16 run aggregates layer 1
+# in float32 where that layer aggregates first (models/gcn.py)
+launches_by_dtype = {"float32": {"fwd": 0, "bwd": 0},
+                     "bfloat16": {"fwd": 0, "bwd": 0}}
 csr_launches = {"fwd": 0, "bwd": 0}    # rectangular tables (csr_gather)
 combine_launches = {"fwd": 0, "bwd": 0}   # csr_gather's split rows
 
@@ -212,6 +217,7 @@ def launch(direction: str, graph: SizedGraph, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     _run_kernel(row_ptr, col, x, out, S * P, direction, tasks)
     launches[direction] += 1
+    launches_by_dtype[str(x.dtype).removeprefix("torch.")][direction] += 1
     return out
 
 

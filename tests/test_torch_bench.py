@@ -1,10 +1,11 @@
 """The port's throughput benchmark (gmeta_tpu_torch/bench.py) against the
 JAX package's (bench.py at the repository root): the synthesized pools
 byte for byte, a cut replay's theta against the JAX MetaLearner's pool and
-compact steps, the FLOP count, main()'s line and exit code; and the
-shared-adjacency aggregation (ops/sized_spmm.py aggregate_sized_shared)
-against the JAX batching rule of a task-invariant adjacency, in interpret
-mode."""
+compact steps and its first bf16 inner gradient against JAX's
+(parity_torch/bf16_stages.py), the FLOP count, main()'s line and exit
+code; and the shared-adjacency aggregation (ops/sized_spmm.py
+aggregate_sized_shared) against the JAX batching rule of a task-invariant
+adjacency, in interpret mode."""
 
 import functools
 import json
@@ -28,6 +29,10 @@ from gmeta_tpu_torch.scripts import bench_window
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import bench as jbench  # noqa: E402
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "parity_torch"))
+import bf16_stages  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -106,17 +111,17 @@ def test_cut_replay_matches_jax(monkeypatch, compact, agg, dtype):
     tests/test_torch_meta.py's tolerances, and theta after the run at them
     too in float32 (the head bias bounded as there).
 
-    In bf16 an entry of theta may part: Adam's first step moves every entry
-    by meta_lr times the sign of its gradient, and bf16 rounding flips the
-    sign of near-zero gradients. The two packages round at other places
-    (JAX keeps the masked input features in float32, for one), so they
-    flip other entries: JAX's bf16 theta parts from its float32 theta in
-    8% of the first weight, the port's bf16 theta from its float32 one in
-    18%, and from JAX's bf16 one in 15% of theta's entries. So at most a
-    quarter of theta's entries may part beyond float32's tolerance, each
-    by no more than two Adam steps in each package can move it apart (each
-    step at most 1.0014 meta_lr: |m_hat| / sqrt(v_hat) after two steps);
-    theta after one step, or none, parts in 98% of them."""
+    In bf16 an entry of theta may part: Adam's first steps move every entry
+    by about meta_lr times the sign of its gradient, and a gradient near
+    zero takes its sign from rounding. The port rounds every bf16 value
+    where JAX's program does (layer 1 in float32, its output rounded), but
+    XLA's compile of that program on the CPU keeps some bf16 products in
+    float32 where float32 consumes them, sums each bias gradient in a bf16
+    accumulator, and reorders Adam's float32 arithmetic
+    (parity_torch/bf16_stages.py attributes each share). So at most 3% of
+    theta's entries may part beyond float32's tolerance (1.8% do), each by
+    no more than two Adam steps in each package can move it apart (each
+    step at most 1.0014 meta_lr: |m_hat| / sqrt(v_hat) after two steps)."""
     name = "tissue_ppi"
     s = dict(bench.SHAPES[name], **CUT)
     rec = _record(compact, agg)
@@ -167,7 +172,44 @@ def test_cut_replay_matches_jax(monkeypatch, compact, agg, dtype):
             parted.append(off.ravel())
     if dtype == "bfloat16":
         share = np.concatenate(parted).mean()
-        assert share <= 0.25, share
+        assert share <= 0.03, share
+
+
+@pytest.mark.parametrize("agg", ["dense", "sized"])
+def test_cut_inner_gradient_matches_jax(agg):
+    """Stage (b) of parity_torch/bf16_stages.py: the support loss and the
+    gradient of one bf16 inner step from theta on the cut replay's first
+    meta-batch, against the JAX inner step jitted and vmapped over the
+    tasks as MetaLearner runs it. The losses are float32 and agree to an
+    ulp (the head's product sums in another order).
+
+    Compiled as XLA compiles it by default, JAX keeps some bf16 products
+    in float32 where a float32 product consumes them (the cotangent of
+    `h * norm` into the transposed matmul, for one), so 46% of the
+    gradient's entries part, each by a few bf16 ulps. Compiled with
+    xla_allow_excess_precision off, XLA rounds every bf16 value the
+    program names, as the port does: then every weight's gradient is equal
+    bit for bit, and only the GraphConv biases' part (0.7% of the
+    entries), whose reduction XLA sums in a bf16 accumulator where the
+    port sums in float32 and rounds once. The head bias's gradient is
+    rounding noise (tests/test_torch_meta.py) and is bounded alone."""
+    shares = {}
+    for honour in (False, True):
+        (jl, jg), (tl, tg) = bf16_stages.inner_gradients(agg, honour=honour)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-6)
+        head_b = len(jg) - 1
+        assert np.abs(tg[head_b].numpy()).max() < 1e-6
+        assert np.abs(np.asarray(jg[head_b])).max() < 1e-6
+        body = range(head_b)
+        for i in body:
+            a, b = np.asarray(jg[i]), tg[i].numpy()
+            # a few bf16 ulps of the largest entry
+            assert np.abs(b - a).max() <= 2 ** -6 * np.abs(a).max(), i
+            if honour and i % 2 == 0:              # the weights
+                np.testing.assert_array_equal(b, a, err_msg=f"param {i}")
+        shares[honour] = bf16_stages.share((jg[i], tg[i]) for i in body)
+    assert shares[False] <= 0.47, shares
+    assert shares[True] <= 0.01, shares
 
 
 def _flops(agg, **cut):

@@ -249,6 +249,47 @@ def test_pinned_host_window_fit_equals_compact_fit(cuda):
     assert r_h == r_c and r_h.global_step == 6
 
 
+def test_bf16_forward_on_cuda_matches_cpu(cuda):
+    """A bf16 forward of a small packed batch (feat 8, hidden 16: both
+    layers aggregate first) on the card against the port's own CPU bf16
+    forward, every layer's activations and the logits, at chip_smoke.py's
+    TOLS["bfloat16"] (the kernel sums in another order than the plain
+    version). Layer 1 aggregates its float32 input with the float32
+    kernel, as JAX's promotion keeps it; layer 2 with the bf16 one."""
+    from gmeta_tpu_torch.meta.maml import batch_to
+    from gmeta_tpu_torch.models import gcn
+
+    store, ds = _tiny()
+    batch = next(ds["train"].batches(4, shuffle=False))
+    spec = build_model_config(Config(hidden_dim=16), store.feat_dim, 3)
+    params = gcn.init_params(torch.Generator().manual_seed(5), spec)
+    runs = []
+    for device in ("cpu", cuda):
+        sg = batch_to(batch, device).spt
+        feats = torch.from_numpy(store.features).to(device)
+        before = {k: dict(v) for k, v in sized_spmm.launches_by_dtype.items()}
+        col = []
+        logits = gcn.forward(tuple(p.to(device) for p in params), sg, feats,
+                             spec, compute_dtype=torch.bfloat16, agg="sized",
+                             collect=col)
+        torch.cuda.synchronize()
+        runs.append(([c.cpu() for c in col], logits.cpu()))
+        launched = {k: {d: sized_spmm.launches_by_dtype[k][d] - before[k][d]
+                        for d in v} for k, v in before.items()}
+        if device == "cpu":
+            assert not any(n for v in launched.values() for n in v.values())
+        else:
+            assert launched == {"float32": {"fwd": 1, "bwd": 0},
+                                "bfloat16": {"fwd": 1, "bwd": 0}}, launched
+    (want_col, want), (got_col, got) = runs
+    for i, (a, b) in enumerate(zip(got_col, want_col)):
+        assert a.dtype == b.dtype == torch.bfloat16, i
+        torch.testing.assert_close(a.float(), b.float(), rtol=8e-3,
+                                   atol=8e-3)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=8e-3, atol=8e-3)
+
+
 # ---- device extractor and remat on the card --------------------------------
 
 def test_device_extractor_on_cuda_equals_cpu_uncapped(cuda):

@@ -82,6 +82,67 @@ def test_forward_matches_jax(link_pred, h, hidden, agg):
                     agg=agg).numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("agg", ["dense", "sized"])
+@pytest.mark.parametrize("hidden", [4, 32])
+@pytest.mark.parametrize("h", [1, 2, 3])
+@pytest.mark.parametrize("link_pred", [False, True])
+def test_forward_bf16_matches_jax_bitwise(link_pred, h, hidden, agg):
+    """The grid of test_forward_matches_jax in bf16: every GraphConv
+    layer's activations (the `collect` hook) equal JAX's bit for bit, and
+    the float32 logits match at float32's tolerance (the head's product
+    sums in another order). Layer 1 runs in float32 in both packages: the
+    masked input features are float32 (JAX's type promotion of the bf16
+    rows times the float32 mask), so only its output is rounded."""
+    store, sets, stacked = _packed_tasks(link_pred, h, seed=h)
+    kw = dict(h=h, hidden_dim=hidden, link_pred_mode=link_pred,
+              task_setup="Shared" if link_pred else "Disjoint")
+    spec = build_model_config(Config(**kw), store.feat_dim, 3)
+    jparams = jgcn.init_params(jax.random.PRNGKey(h), spec)
+    feats = jnp.asarray(store.features)
+    want, want_layers = [], [[] for _ in range(h)]
+    for sg in sets:
+        col = []
+        want.append(np.asarray(jgcn.forward(
+            jparams, jax.tree.map(jnp.asarray, sg), feats, spec,
+            compute_dtype=jnp.bfloat16, agg=agg, collect=col)))
+        for i, c in enumerate(col):
+            want_layers[i].append(np.asarray(c).astype(np.float32))
+
+    params = params_from_jax([np.asarray(p) for p in jparams])
+    tb = batch_to(TaskBatch(spt=stacked, qry=stacked), "cpu").spt
+    got_layers = []
+    got = gcn.forward(params, tb, torch.from_numpy(store.features), spec,
+                      compute_dtype=torch.bfloat16, agg=agg,
+                      collect=got_layers)
+    assert len(got_layers) == h
+    for i, (w, g) in enumerate(zip(want_layers, got_layers)):
+        assert g.dtype == torch.bfloat16, i
+        np.testing.assert_array_equal(g.float().numpy(), np.stack(w),
+                                      err_msg=f"layer {i + 1}")
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.stack(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("agg", ["dense", "sized"])
+def test_precompute_bf16_keeps_h0_float32(agg):
+    """In bf16 mode h0 is float32 holding bf16-rounded rows, pad slots
+    zero, exactly as JAX's precompute(...).h0; the norm is bf16."""
+    store, sets, stacked = _packed_tasks(False, 2, seed=5)
+    tb = batch_to(TaskBatch(spt=stacked, qry=stacked), "cpu").spt
+    feats = torch.from_numpy(store.features)
+    ops = gcn.precompute(tb, torch.bfloat16, feats=feats, agg=agg)
+    assert ops.h0.dtype == torch.float32 and ops.norm.dtype == torch.bfloat16
+    assert torch.equal(ops.h0, gcn.gather_features(tb, feats,
+                                                   torch.bfloat16))
+    for t, sg in enumerate(sets):
+        want = jgcn.precompute(jax.tree.map(jnp.asarray, sg), jnp.bfloat16,
+                               feats=jnp.asarray(store.features)).h0
+        assert want.dtype == jnp.float32
+        np.testing.assert_array_equal(ops.h0[t].numpy(), np.asarray(want))
+    assert torch.equal(ops.h0, ops.h0.to(torch.bfloat16).float())
+
+
 class _Sizes(TorchDispatchMode):
     """Records the element count of every tensor an op returns."""
 
