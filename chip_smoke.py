@@ -38,6 +38,11 @@ Phases; any failure raises and the script exits non-zero:
                 and read just after; both kernels must have run. Then warm
                 sized and dense meta-steps in turns, with the seconds and
                 peak device memory of each, and a profiled sized step.
+                A Trainer built on the card with agg="auto" over this
+                cell must resolve it by the card's rule (data/pipeline.py
+                `agg_for` on CUDA, its echo line naming the card's
+                crossover); what auto picks on the card and on the CPU
+                is printed.
   8. modes    — the same fit in the three execution modes, from the same
                 initial theta, in turns (streaming, compact, host-windowed,
                 host-windowed, compact, streaming), 2-step windows: the
@@ -158,7 +163,14 @@ Phases; any failure raises and the script exits non-zero:
                 the shared-adjacency call. (a) `bench_shape` on the five
                 shapes at full width and the runs of record's geometry
                 (parity/<recipe>.json buckets, fill, pool mode; bf16; 16
-                meta-steps after one warm step and one FLOP-counted step),
+                meta-steps after one warm step and one FLOP-counted step);
+                first, per shape, what agg="auto" resolves to at the
+                record's geometry on the card and on the CPU (`agg_for`
+                at the shape's widths, bf16), and `densify` of the whole
+                pool (host form and compact-decoded form, float32 and
+                bf16) under torch.cuda.set_sync_debug_mode("error"),
+                bitwise equal to `densify_serial`, the form that
+                scattered every pad edge into one cell; then
                 the record's aggregation (dense in all five) and
                 agg="sized" in turns; launch counts set to 0 just before
                 each sized run and read just after: the packed kernel must
@@ -513,13 +525,53 @@ def kept_metrics():
         def __init__(self):
             super().__init__("")
             self.records = []
+            self.echoed = []
 
         def log(self, kind, **payload):
             rec = super().log(kind, **payload)
             self.records.append(rec)
             return rec
 
+        def echo_line(self, msg):
+            super().echo_line(msg)
+            self.echoed.append(msg)
+
     return Kept()
+
+
+def auto_choices(split, spec, dtype):
+    """What agg="auto" resolves to for a split (a MetaDataset or a
+    SplitGeometry) at a model's widths and dtype: on the card and on the
+    CPU (data/pipeline.py `agg_for`), with the split's real edges per slot
+    and the card's crossover there."""
+    import torch
+    from gmeta_tpu_torch.data.pipeline import (agg_for, aggregation_width,
+                                               card_crossover,
+                                               edges_per_slot)
+    P = max(split.P_spt, split.P_qry)
+    return {"card": agg_for(split, torch.device("cuda"), spec, dtype),
+            "cpu": agg_for(split, torch.device("cpu"), spec, dtype),
+            "edges_per_slot": edges_per_slot(split),
+            "crossover": card_crossover(P, aggregation_width(spec), dtype)}
+
+
+def auto_trainer(cfg, store, ds):
+    """Phase 7: a Trainer on the card with agg="auto" over phase 4's cell
+    resolves it by the card's rule: its agg is `agg_for`'s on CUDA and its
+    echo line names the card's crossover. Returns `auto_choices`."""
+    from gmeta_tpu_torch.run.train import Trainer
+    metrics = kept_metrics()
+    trainer = Trainer(dataclasses.replace(cfg, agg="auto"), store, ds,
+                      labels_num=cfg.n_way, metrics=metrics)
+    got = auto_choices(ds["train"], trainer.spec, cfg.dtype)
+    line = [m for m in metrics.echoed if m.startswith("agg kernel:")]
+    assert trainer.device.type == "cuda" and trainer.agg == got["card"], \
+        (trainer.agg, got)
+    assert len(line) == 1 and "the card's crossover" in line[0], line
+    log(f"  auto on phase 4's cell: card {got['card']}, CPU {got['cpu']} "
+        f"({got['edges_per_slot']:.4f} real edges per slot, crossover "
+        f"{got['crossover']:.2f}); Trainer: {line[0]}")
+    return got
 
 
 class Killed(Exception):
@@ -1985,6 +2037,46 @@ SHARED_TASKS = (3, 32)   # tasks sharing one adjacency, the timed widths
 SHARED_H = 256
 
 
+def densify_check(data, name, chunk=8):
+    """14(a): `densify` of a shape's whole pool, `chunk` tasks at a time,
+    in the host form (pad edges src 0, dst B*P-1) and as the compact pool
+    decodes it on the card (pads src (B-1)*P), float32 and bf16, under
+    torch.cuda.set_sync_debug_mode("error") (a host sync raises), bitwise
+    equal to `densify_serial` (the form that scattered every pad into one
+    cell). Returns the number of adjacencies compared."""
+    import numpy as np
+    import torch
+    from gmeta_tpu_torch.meta.maml import MetaLearner
+    from gmeta_tpu_torch.ops.spmm import densify
+    from gmeta_tpu_torch.scripts.bench_kernels import (densify_serial,
+                                                       same_bits)
+    checked = 0
+    for sg in (data.tasks.spt, data.tasks.qry):
+        B, P = sg.node_gid.shape[-2:]
+        leaves, meta = MetaLearner._encode_set_leaves(sg)
+        for lo in range(0, sg.edge_src.shape[0], chunk):
+            host = [torch.from_numpy(np.ascontiguousarray(a[lo:lo + chunk]))
+                    .cuda() for a in (sg.edge_src, sg.edge_dst,
+                                      sg.edge_mask)]
+            dec = MetaLearner._build_set(
+                [torch.from_numpy(l[lo:lo + chunk]).cuda() for l in leaves],
+                meta)
+            for edges in (host, (dec.edge_src, dec.edge_dst,
+                                 dec.edge_mask)):
+                for dtype in (torch.float32, torch.bfloat16):
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        A = densify(*edges, B, P, dtype=dtype)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                    assert same_bits(A, densify_serial(*edges, B, P,
+                                                       dtype=dtype)), \
+                        (name, B, P, lo, dtype)
+                    checked += 1
+                    del A
+    return checked
+
+
 def bench_phase(device):
     """14(a): gmeta_tpu_torch/bench.py's `bench_shape` on the five shapes
     at full width and the record's geometry, the record's aggregation and
@@ -2005,6 +2097,17 @@ def bench_phase(device):
     by_dtype = {t: {"fwd": 0, "bwd": 0} for t in sp.launches_by_dtype}
     for name, s in bench.SHAPES.items():
         data = bench.shape_data(name, s)
+        meta = bench.REPLICA_META[name]
+        auto = auto_choices(
+            bench.record_geometry(bench._load_parity(name)),
+            bench.shape_spec(s, meta["feat"], meta["n_out"]), "bfloat16")
+        t0 = time.time()
+        n_dense = densify_check(data, name)
+        log(f"  {name}: auto resolves to {auto['card']} on the card, "
+            f"{auto['cpu']} on the CPU ({auto['edges_per_slot']:.4f} real "
+            f"edges per slot, crossover {auto['crossover']:.2f}); densify "
+            f"bitwise equal to densify_serial with no host sync on "
+            f"{n_dense} adjacencies ({time.time() - t0:.1f} s)")
         rec = bench.bench_shape(name, s, device=device, data=data)
         zero_counts()
         sized = bench.bench_shape(name, s, agg="sized", device=device,
@@ -2031,7 +2134,8 @@ def bench_phase(device):
         a, b = sized["meta_loss_first"], rec["meta_loss_first"]
         assert abs(a - b) <= atol + rtol * abs(b), (name, a, b)
         shapes[name] = dict(rec, sized=sized, sized_launches=got,
-                            sized_launches_by_dtype=split)
+                            sized_launches_by_dtype=split, auto=auto,
+                            densify_checked=n_dense)
         busy = [None if r["profile"] is None else
                 round(r["profile"]["busy_share"], 3) for r in (rec, sized)]
         log(f"  {name}: {rec['agg']} {rec['tasks_per_s']:.2f} tasks/s "
@@ -2241,6 +2345,7 @@ def main():
               "early_stopped_ref", "val_max_acc"):
         assert 0.0 <= getattr(result, f) <= 1.0, result
     assert main_path["fwd"] > 0 and main_path["bwd"] > 0, main_path
+    auto7 = auto_trainer(cfg, store, ds)
 
     # one more meta-step on its own: kernel launches per meta-step
     for k in sp.launches:
@@ -2433,7 +2538,8 @@ def main():
         "step_compute_s": [r["compute_s"] for r in steps],
         "dense_step_s": dense_s, "step_s_turns": turns,
         "step_peak_gb": peaks, "profile": breakdown,
-        "result": dataclasses.asdict(result), "modes": modes, "cli": cli,
+        "result": dataclasses.asdict(result), "auto": auto7,
+        "modes": modes, "cli": cli,
         "mesh": mesh, "measure": measure12, "calibrate": calibrate13,
         "card": card}}))
     log(card)

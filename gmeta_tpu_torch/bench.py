@@ -174,14 +174,13 @@ def _pool_from_parity(name, s, rec, pool=POOL):
 
     meta = REPLICA_META[name]
     b = rec["buckets"]
-    fill = float(rec.get("mean_bin_fill", 0.7))
+    geo = record_geometry(rec)
+    fill, mean_edges = geo.mean_bin_fill, geo.mean_edges_per_task
     agg = rec.get("agg", "dense")
     link = s["kind"] == "link"
     n_way = s.get("n_way", 2 if link else meta["n_out"])
     S_spt = n_way * s["k_spt"]
     S_qry = n_way * s["k_qry"]
-    mean_edges = (rec["edges_per_s"] / rec["tasks_per_s"]
-                  if rec.get("tasks_per_s") else 0.0)
     E_tot = b["E_spt"] + b["E_qry"]
     rng = np.random.RandomState(11)
     n_feat = 200_000
@@ -233,7 +232,7 @@ class ShapeData(NamedTuple):
     feats: np.ndarray
     tasks: object            # stacked TaskBatch of `pool` tasks
     mean_edges: float
-    agg: str                 # the record's (or suggested_agg's) choice
+    agg: str                 # the record's (or agg_for's) choice
     buckets: dict
     n_out: int
     geometry: str            # "parity_buckets" or "synthetic"
@@ -242,9 +241,33 @@ class ShapeData(NamedTuple):
     data_s: float
 
 
-def shape_data(name, s, rec=None, pool=POOL) -> ShapeData:
+def shape_spec(s, feat: int, n_out: int):
+    """The layer spec a shape's runs train (h 2, the shape's hidden width
+    and kind) over `feat` input features and `n_out` classes."""
+    from gmeta_tpu_torch.config import Config, build_model_config
+    cfg = Config(h=2, hidden_dim=s["hidden"],
+                 link_pred_mode=(s["kind"] == "link"),
+                 task_setup="Shared" if s["kind"] != "disjoint" else "Disjoint")
+    return build_model_config(cfg, feat, n_out)
+
+
+def record_geometry(rec) -> "SplitGeometry":
+    """What data/pipeline.py `agg_for` reads of a run of record: its
+    buckets, bin fill and real edges per task."""
+    from gmeta_tpu_torch.data.pipeline import SplitGeometry
+    b = rec["buckets"]
+    mean_edges = (rec["edges_per_s"] / rec["tasks_per_s"]
+                  if rec.get("tasks_per_s") else 0.0)
+    return SplitGeometry(
+        b["P_spt"], b["B_spt"], b["E_spt"], b["P_qry"], b["B_qry"],
+        b["E_qry"], mean_edges, float(rec.get("mean_bin_fill", 0.7)))
+
+
+def shape_data(name, s, rec=None, pool=POOL, device=None) -> ShapeData:
     """The pool of a shape: from `rec` (default: `parity/<name>.json`)
-    where there is a record, else from the synthetic dataset."""
+    where there is a record, with the record's aggregation, else from the
+    synthetic dataset, with what agg="auto" picks for it on `device`
+    (data/pipeline.py `agg_for` at the shape's widths, bf16)."""
     t0 = time.time()
     rec = _load_parity(name) if rec is None else rec
     if rec is not None:
@@ -254,9 +277,12 @@ def shape_data(name, s, rec=None, pool=POOL) -> ShapeData:
         compact = bool(rec.get("preset_overrides", {})
                        .get("device_task_pool", False))
     else:
+        from gmeta_tpu_torch.data.pipeline import agg_for
         store, train, n_out = _build_dataset(name, s, pool)
         feats, tasks = store.features, train.stacked_pool()
-        mean_edges, agg = train.mean_edges_per_task, train.suggested_agg
+        mean_edges = train.mean_edges_per_task
+        agg = agg_for(train, resolve_device(device),
+                      shape_spec(s, store.feat_dim, n_out), "bfloat16")
         buckets = dict(P_spt=train.P_spt, B_spt=train.B_spt,
                        E_spt=train.E_spt, P_qry=train.P_qry,
                        B_qry=train.B_qry, E_qry=train.E_qry)
@@ -290,12 +316,12 @@ def count_flops(step, agg: str):
 
 def run_shape(name, s, *, agg=None, device=None, steps=MEASURE_STEPS,
               pool=POOL, rec=None, data=None, dtype=torch.bfloat16,
-              init=None):
+              init=None, profile_top=12):
     """bench_shape's run; returns (result, the MetaLearner). `data` is the
     shape's `shape_data` (made here from `rec` and `pool` when None);
     `init` a flat theta (numpy, the JAX layout) in place of seed 0's;
-    `dtype` the compute dtype (the bench's is bf16)."""
-    from gmeta_tpu_torch.config import Config, build_model_config
+    `dtype` the compute dtype (the bench's is bf16); `profile_top` how
+    many kernels the profile lists."""
     from gmeta_tpu_torch.meta.maml import MetaLearner
     from gmeta_tpu_torch.utils import cardtime
 
@@ -303,10 +329,7 @@ def run_shape(name, s, *, agg=None, device=None, steps=MEASURE_STEPS,
     if data is None:
         data = shape_data(name, s, rec, pool)
     agg = agg or data.agg
-    cfg = Config(h=2, hidden_dim=s["hidden"],
-                 link_pred_mode=(s["kind"] == "link"),
-                 task_setup="Shared" if s["kind"] != "disjoint" else "Disjoint")
-    spec = build_model_config(cfg, data.feats.shape[1], data.n_out)
+    spec = shape_spec(s, data.feats.shape[1], data.n_out)
     # without remat and with the record's pool mode, as the JAX bench
     ml = MetaLearner(spec, data.n_out, update_lr=0.01, meta_lr=1e-3,
                      update_step=s["update_step"],
@@ -348,7 +371,8 @@ def run_shape(name, s, *, agg=None, device=None, steps=MEASURE_STEPS,
     busy = None
     if cuda:            # one more step, profiled; theta stays the window's
         theta = ml.snapshot()
-        busy = cardtime.profile(lambda: run(idx_mat[:1])["meta_loss"])
+        busy = cardtime.profile(lambda: run(idx_mat[:1])["meta_loss"],
+                                top=profile_top)
         ml.set_params(theta)
     losses = ms["meta_loss"].float().cpu().numpy()
     if not np.isfinite(losses).all() or int(ms["nan_skip"].sum()):
@@ -458,7 +482,7 @@ def main(argv=None) -> int:
     ok, shapes = True, {}
     for name, s in SHAPES.items():
         try:
-            data = shape_data(name, s, pool=POOL)
+            data = shape_data(name, s, pool=POOL, device=device)
             kw = dict(device=device, steps=MEASURE_STEPS, data=data)
             res = bench_shape(name, s, **kw)
             if res["agg"] != "sized":

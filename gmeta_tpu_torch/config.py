@@ -57,8 +57,12 @@ class Config:
                                         # host-windowed above the budget
     compact_pool_hbm_gb: float = 10.0   # device budget of the compact pool
                                         # (read only with device_task_pool;
-                                        # the JAX package's, sized for a
-                                        # 16 GB TPU, not re-measured here)
+                                        # the JAX package's default). On an
+                                        # NVIDIA H100 80GB HBM3 it binds no
+                                        # preset: the largest compact pools
+                                        # are tree_of_life's 6.37 GB and
+                                        # arxiv's 5.71 GB (task_pool records,
+                                        # parity_torch/*.metrics.jsonl)
     task_vmap_chunk: int = -1           # tasks per chunk of the meta-step:
                                         # bounds the live densified
                                         # adjacencies. -1 = auto (all tasks
@@ -84,11 +88,13 @@ class Config:
     extract_disk_cache: bool = True     # persist native-engine extractions
                                         # (native engine only)
     agg: str = "auto"                   # aggregation kernel: 'auto' picks per
-                                        # split from bin-fill stats
-                                        # (pipeline.suggested_agg); 'dense' =
-                                        # batched matmul; 'sized' = the
-                                        # size-aware SpMM kernels
-                                        # (ops/sized_spmm)
+                                        # train split (pipeline.agg_for: on
+                                        # the card by its measured crossover
+                                        # in real edges per slot, elsewhere
+                                        # by the JAX package's bin-fill
+                                        # rule); 'dense' = batched matmul;
+                                        # 'sized' = the size-aware SpMM
+                                        # kernels (ops/sized_spmm)
     cap_strategy: str = "uniform"       # subgraph node-cap: 'uniform' (reference
                                         # parity, subgraph_data_processing.py:312-314)
                                         # | 'degree' (centrality-scored keep-top-k)

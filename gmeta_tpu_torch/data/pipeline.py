@@ -13,9 +13,10 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from gmeta_tpu_torch.data.extract import SubgraphExtractor
 from gmeta_tpu_torch.data.io import SplitIndex
@@ -48,6 +49,127 @@ def map_labels(labels: Dict[str, int]) -> tuple:
     if all(v == i for i, v in enumerate(uniq)):
         return labels, label_to_id
     return {k: label_to_id[v] for k, v in labels.items()}, label_to_id
+
+
+def jax_agg_rule(P_spt: int, P_qry: int, mean_bin_fill: float) -> str:
+    """The JAX package's aggregation rule (gmeta_tpu/data/pipeline.py
+    `suggested_agg`), verbatim: dense unless both bin capacities are
+    multiples of 128 and the mean bin fill is below 0.35. It was set on
+    the JAX package's hardware, where the size-aware kernel skips only
+    dead 128-row tiles; `agg_for` applies it off the card."""
+    if P_spt % 128 or P_qry % 128:
+        return "dense"
+    return "sized" if mean_bin_fill < 0.35 else "dense"
+
+
+class SplitGeometry(NamedTuple):
+    """What `agg_for` reads of a split, where there is no MetaDataset: a
+    run of record's buckets, fill and real edges (bench.py)."""
+    P_spt: int
+    B_spt: int
+    E_spt: int
+    P_qry: int
+    B_qry: int
+    E_qry: int
+    mean_edges_per_task: float
+    mean_bin_fill: float
+
+    @property
+    def suggested_agg(self) -> str:
+        return jax_agg_rule(self.P_spt, self.P_qry, self.mean_bin_fill)
+
+
+def edges_per_slot(split) -> float:
+    """Mean real edges per node slot of a split (a MetaDataset or a
+    SplitGeometry): its real spt + qry edges per task over the task's
+    B_spt P_spt + B_qry P_qry slots, pad slots and pad bins included."""
+    slots = split.B_spt * split.P_spt + split.B_qry * split.P_qry
+    return split.mean_edges_per_task / max(slots, 1)
+
+
+# The card's crossover: real edges per slot above which one meta-step's
+# aggregation work of a layer (2 precomputes, 22 forward and 12 transposed
+# calls: update_step 10 with the curve) costs less dense (`densify`,
+# torch.bmm) than sized (`sized_graph`, the CSR gather kernel), by compute
+# dtype, bin capacity P and aggregated width H, over 128 bins a call, the
+# lower of bin fills 0.5 and 0.8. Measured from 1 to 256 real edges per
+# slot on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (`nvidia-smi
+# --query-gpu=name,power.limit --format=csv,noheader`):
+# measure_torch/bench_crossover.json, written by `python -m
+# gmeta_tpu_torch.scripts.bench_kernels --crossover`, whose
+# `crossover_table` gives this table.
+CARD_CROSSOVER = {
+    "float32": {512: {1: 14.9, 5: 24.8, 50: 26.9, 128: 38.7, 256: 41.8},
+                1024: {1: 56.9, 5: 78.7, 50: 66.6, 128: 77.2, 256: 86.8}},
+    "bfloat16": {512: {1: 73.3, 5: 73.5, 50: 50.8, 128: 90.1, 256: 102.4},
+                 1024: {1: 159.4, 5: 168.6, 50: 112.3, 128: 176.0,
+                        256: 192.4}},
+}
+
+
+def _interp(x: float, table: Dict[int, float]) -> float:
+    """Piecewise-linear in x over the table's keys, flat past its ends."""
+    keys = sorted(table)
+    if x <= keys[0]:
+        return table[keys[0]]
+    for lo, hi in zip(keys, keys[1:]):
+        if x <= hi:
+            return table[lo] + (x - lo) / (hi - lo) * (table[hi] - table[lo])
+    return table[keys[-1]]
+
+
+def card_crossover(P: int, H: int, dtype: str = "float32") -> float:
+    """`CARD_CROSSOVER` at any P and H: piecewise linear in H between the
+    measured widths (flat past them), linear in P between the measured
+    capacities, and in proportion to P outside them (dense's work per slot
+    grows as P, the gather's does not)."""
+    by_P = CARD_CROSSOVER[dtype]
+    at = {p: _interp(H, by_H) for p, by_H in by_P.items()}
+    lo, hi = min(at), max(at)
+    if P < lo:
+        return at[lo] * P / lo
+    if P > hi:
+        return at[hi] * P / hi
+    return _interp(P, at)
+
+
+def aggregation_width(layer_spec=None) -> int:
+    """The widest H the model aggregates: each GraphConv layer aggregates
+    at the narrower of its widths (models/gcn.py projects first where it
+    shrinks). Without a layer spec, the widest swept width."""
+    widths = [min(dims) for name, dims in layer_spec or ()
+              if name == "GraphConv"]
+    return max(widths) if widths else max(CARD_CROSSOVER["float32"][512])
+
+
+def agg_for(split, device, layer_spec=None, dtype: str = "float32") -> str:
+    """What agg="auto" resolves to for a split (a MetaDataset or a
+    SplitGeometry) on a device.
+
+    On a CUDA device, the card's rule: "sized" where the split's real
+    edges per slot (`edges_per_slot`) lie below `card_crossover` at its
+    bin capacity, the model's widest aggregated width (`layer_spec`, see
+    `aggregation_width`) and its compute dtype, else "dense". The gather
+    kernel's time follows the edges and dense's the P x P slots, so
+    edges per slot decide; no multiple of 128 is asked of P, since the
+    kernel has no tile. The crossover was measured on an NVIDIA H100
+    80GB HBM3 at 700.00 W (`CARD_CROSSOVER`,
+    measure_torch/bench_crossover.json). Whole bench steps
+    (scripts/bench_agg.py, measure_torch/bench_agg.json) went its way
+    where the card sets the step: tree_of_life's buckets in float32 at
+    half and twice its 86.8 edges per slot ran sized 1.31x faster, then
+    dense 1.27x. Where the host sets the step (a few tasks of a few bins),
+    sized still takes less device time, but which path's wall time is
+    shorter changes from call to call.
+
+    On any other device, `split.suggested_agg`: the JAX package's rule,
+    so that the CPU resolves `auto` as the JAX package does."""
+    if torch.device(device).type != "cuda":
+        return split.suggested_agg
+    P = max(split.P_spt, split.P_qry)
+    H = aggregation_width(layer_spec)
+    return ("sized" if edges_per_slot(split) < card_crossover(P, H, dtype)
+            else "dense")
 
 
 class MetaDataset:
@@ -180,16 +302,10 @@ class MetaDataset:
 
     @property
     def suggested_agg(self) -> str:
-        """Static aggregation-kernel choice for this split (models/gcn.py
-        `agg`). The rule is the JAX package's, kept verbatim so that `auto`
-        means the same in both packages: size-aware aggregation only when
-        the mean bin fill is below 0.35. That threshold was measured on a
-        TPU, not on this port's GPU kernels; until it is re-measured here
-        it picks dense at every preset, so callers that want the kernels
-        set agg="sized"."""
-        if self.P_spt % 128 or self.P_qry % 128:
-            return "dense"
-        return "sized" if self.mean_bin_fill < 0.35 else "dense"
+        """The JAX package's aggregation choice for this split
+        (`jax_agg_rule`), which `agg_for` gives `auto` off the card; on
+        the card `agg_for` applies the card's own crossover."""
+        return jax_agg_rule(self.P_spt, self.P_qry, self.mean_bin_fill)
 
     @property
     def mean_edges_per_task(self) -> float:

@@ -78,24 +78,36 @@ def densify(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     """(..., S, P, P) block-diagonal adjacency: A[s, v, u] = 1 for each edge
     (u -> v) inside block s (flat slots s*P+u, s*P+v). Leading dims of the
     (..., E) edge arrays carry over (one adjacency per task). Duplicate edges
-    accumulate. Padding edges carry mask 0 and add nothing; their source
-    index is clamped into range, since a pad edge (src 0, dst S*P-1) does
-    not lie inside one block. Real edges never cross blocks (extraction is
-    per subgraph), so src // P == dst // P for them."""
+    accumulate. Real edges never cross blocks (extraction is per subgraph),
+    so src // P == dst // P for them; their source index is clamped into
+    the block all the same.
+
+    Edges with mask 0, such as the pad edges (src 0, dst S*P-1), add 0, and
+    each adds it to a cell of its own (edge e of its task's adjacency into
+    cell e mod S*P*P), wherever its endpoints point: all pads of a set
+    share one (dst, src) pair, and on a CUDA tensor adds into one cell run
+    one after another. The values are the integers 0 and 1, so their sums
+    are exact in float32 and bf16 in any order, and `scatter_add_`'s
+    unordered adds give JAX's `densify` bit for bit. No host sync."""
     lead = edge_dst.shape[:-1]
     n_lead = 1
     for d in lead:
         n_lead *= d
     edge_src = edge_src.reshape(n_lead, -1).long()
     edge_dst = edge_dst.reshape(n_lead, -1).long()
+    edge_mask = edge_mask.reshape(n_lead, -1)
+    device = edge_dst.device
     sid = edge_dst // P
     dst_l = edge_dst - sid * P
     src_l = (edge_src - sid * P).clamp(0, P - 1)
-    lead_id = torch.arange(n_lead, device=edge_dst.device)[:, None]
-    flat = ((lead_id * S + sid) * P + dst_l) * P + src_l
-    A = torch.zeros(n_lead * S * P * P, dtype=dtype, device=edge_dst.device)
-    A.index_put_((flat.reshape(-1),),
-                  edge_mask.reshape(-1).to(dtype), accumulate=True)
+    block = S * P * P
+    lead_id = torch.arange(n_lead, device=device)[:, None]
+    flat = lead_id * block + (sid * P + dst_l) * P + src_l
+    own = lead_id * block + torch.arange(edge_dst.shape[-1],
+                                         device=device) % block
+    flat = torch.where(edge_mask != 0, flat, own)
+    A = torch.zeros(n_lead * block, dtype=dtype, device=device)
+    A.scatter_add_(0, flat.reshape(-1), edge_mask.reshape(-1).to(dtype))
     return A.view(*lead, S, P, P)
 
 

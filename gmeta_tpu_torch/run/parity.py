@@ -41,9 +41,13 @@ Modes:
 - `--report` writes PARITY_TORCH.md from the training results; `--check`
   verifies it against them.
 
-The aggregation `auto` picks per split from the bin fill
-(data/pipeline.py `suggested_agg`, a rule measured on a TPU); every
-result records the aggregation that ran.
+Training resolves the aggregation `auto` through data/pipeline.py
+`agg_for`: on the card by the card's own crossover in real edges per
+slot, on the CPU by the JAX package's rule (`suggested_agg`). The
+evaluation passes run the record's aggregation, then sized. Every result
+records the aggregation that ran; `--report` lists the training results
+of each tag in REPORT_TAGS beside the untagged ones (`_auto`: a run with
+no `--agg`; `_dense`: `--agg dense` in the same call).
 
 Runs on the card unless `--device` names another.
 
@@ -619,13 +623,28 @@ def _acc_cell(a: dict) -> str:
             f" / {a['best_model_acc']:.3f}")
 
 
-def write_report(out_dir: str = OUT) -> None:
-    rows = []
+REPORT_TAGS = ("", "_auto", "_dense")
+
+
+def _results(out_dir: str):
+    """(label, path, result) of every training result on disk, by recipe
+    and then by REPORT_TAGS."""
     for name in REF:
-        p = os.path.join(out_dir, f"{name}.json")
-        if os.path.exists(p):
-            with open(p) as f:
-                rows.append(json.load(f))
+        for tag in REPORT_TAGS:
+            p = os.path.join(out_dir, f"{name}{tag}.json")
+            if os.path.exists(p):
+                with open(p) as f:
+                    yield name + tag, p, json.load(f)
+
+
+def _wall_cell(r: dict) -> str:
+    w = r["wall_s"]
+    return (f"{w['replica_gen']} / {w['data_and_extraction']} / "
+            f"{w['train_and_eval']}")
+
+
+def write_report(out_dir: str = OUT) -> None:
+    rows = list(_results(out_dir))
     lines = [
         "# PARITY_TORCH — the five recipes trained by the port",
         "",
@@ -641,33 +660,42 @@ def write_report(out_dir: str = OUT) -> None:
         " records' checkpoints is in",
         "`PERF.md` §6 (chip_smoke.py phase 11).",
         "",
+        "Rows tagged `_auto` ran with no `--agg`, so `auto` chose the"
+        " aggregation (`agg`), and rows",
+        "tagged `_dense` with `--agg dense` in the same call; the untagged"
+        " rows are earlier runs.",
+        "Wall s: replica / data and extraction / training and"
+        " evaluation.",
+        "",
         "| recipe | device | params | epochs | acc ref-style / final-step /"
-        " best | record | val max abs diff | tasks/s (record) | peak RSS GB"
-        " | peak device GB | logit parity max rel Δ | overrides |",
-        "|---|---|---|---|---|---|---|---|---|---|---|---|",
+        " best | record | val max abs diff | agg | tasks/s (record) |"
+        " wall s | peak RSS GB | peak device GB | logit parity max rel Δ |"
+        " overrides |",
+        "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|",
     ]
-    for r in rows:
+    for label, _, r in rows:
         ov = ", ".join(f"{k}={v}" for k, v in r["preset_overrides"].items())
         lines.append(
-            f"| {r['recipe']} | {r.get('card') or r.get('backend')} "
+            f"| {label} | {r.get('card') or r.get('backend')} "
             f"| {r['params']:,} | {r['epochs']} "
             f"| {_acc_cell(r['acc'])} | {_acc_cell(r['record_acc'])} "
-            f"| {r['val_max_abs_diff']:.4f} "
+            f"| {r['val_max_abs_diff']:.4f} | {r['agg']} "
             f"| {r['tasks_per_s']:.1f} ({r['tasks_per_s_record']}) "
+            f"| {_wall_cell(r)} "
             f"| {r['peak_rss_gb']:.1f} | {r['peak_device_gb']} "
             f"| {r['activation_parity']['max_rel_diff_logits']:.2e} "
             f"| {ov or 'none'} |")
     lines += ["", "Val accuracy at the last finetune step, per epoch,"
               " port / record:", ""]
-    lines += [f"- {r['recipe']}: " + ", ".join(
+    lines += [f"- {label}: " + ", ".join(
         f"{a:.4f} / {b:.4f}" for a, b in zip(r["val_curve"],
                                              r["record_val_curve"]))
-        for r in rows]
+        for label, _, r in rows]
     lines += ["", "Per-recipe details (val curve per epoch beside the"
               " record's, wall-clock split, per-layer",
-              "activation differences) are in `parity_torch/<recipe>.json`,"
-              " the metric streams in",
-              "`parity_torch/<recipe>.metrics.jsonl`.", ""]
+              "activation differences) are in"
+              " `parity_torch/<recipe><tag>.json`, the metric streams in",
+              "`parity_torch/<recipe><tag>.metrics.jsonl`.", ""]
     with open(REPORT, "w") as f:
         f.write("\n".join(lines))
     print(f"PARITY_TORCH.md written ({len(rows)} recipes)")
@@ -676,20 +704,16 @@ def write_report(out_dir: str = OUT) -> None:
 
 def check_report(out_dir: str = OUT) -> None:
     """Fail if PARITY_TORCH.md's table disagrees with the results on
-    disk (parity_torch/<recipe>.json)."""
+    disk (parity_torch/<recipe><tag>.json, each tag of REPORT_TAGS)."""
     with open(REPORT) as f:
         rows = {l.split("|")[1].strip(): l for l in f if l.startswith("| ")}
     errors = []
-    for name in REF:
-        p = os.path.join(out_dir, f"{name}.json")
-        if not os.path.exists(p):
-            continue
-        with open(p) as f:
-            r = json.load(f)
+    for name, p, r in _results(out_dir):
         if name not in rows:
             errors.append(f"{name}: a result exists but no table row")
             continue
-        for want in (_acc_cell(r["acc"]), f"{r['tasks_per_s']:.1f} ("):
+        for want in (_acc_cell(r["acc"]), f"{r['tasks_per_s']:.1f} (",
+                     f"| {r['agg']} |"):
             if want not in rows[name]:
                 errors.append(f"{name}: table lacks {want!r} (json {p})")
     if errors:

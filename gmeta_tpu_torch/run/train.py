@@ -59,7 +59,8 @@ import torch
 
 from gmeta_tpu_torch.config import Config, PRESETS, build_model_config
 from gmeta_tpu_torch.data.pack import TaskBatch
-from gmeta_tpu_torch.data.pipeline import MetaDataset
+from gmeta_tpu_torch.data.pipeline import (MetaDataset, agg_for,
+                                           edges_per_slot)
 from gmeta_tpu_torch.meta.maml import MetaLearner, take_tasks
 from gmeta_tpu_torch.models.gcn import count_params
 from gmeta_tpu_torch.parallel import mesh as mesh_mod
@@ -108,13 +109,16 @@ class Trainer:
         compute_dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                          else torch.float32)
         agg = cfg.agg
-        if agg == "auto":
-            agg = datasets["train"].suggested_agg
-            self.metrics.echo_line(
-                f"agg kernel: {agg} (bin fill "
-                f"{datasets['train'].mean_bin_fill:.2f})")
-        self.agg = agg
         tr = datasets["train"]
+        if agg == "auto":
+            agg = agg_for(tr, self.device, self.spec, cfg.dtype)
+            rule = ("the card's crossover" if self.device.type == "cuda"
+                    else "the JAX package's rule")
+            self.metrics.echo_line(
+                f"agg kernel: {agg} by {rule} (bin fill "
+                f"{tr.mean_bin_fill:.2f}, {edges_per_slot(tr):.2f} real "
+                f"edges per slot)")
+        self.agg = agg
         self.buckets = dict(P_spt=tr.P_spt, B_spt=tr.B_spt, E_spt=tr.E_spt,
                             P_qry=tr.P_qry, B_qry=tr.B_qry, E_qry=tr.E_qry)
         # -1 (auto) runs all tasks at once: no preset has yet been shown to

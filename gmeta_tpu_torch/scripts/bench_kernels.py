@@ -33,15 +33,31 @@ compute the same function (`synth_bucket`).
 
     python -m gmeta_tpu_torch.scripts.bench_kernels [--tasks N] [--iters 20]
         [--recipes arxiv ...] [--device cpu] [--out PATH] [--global-b-ab]
+        [--crossover]
+
+The dense precompute is also timed in the form that scattered every pad
+edge into one cell (`densify_serial`, `dense_*_pre_serial`), and held
+bitwise against `densify`.
 
 `--global-b-ab` only times the dense arxiv query aggregation at the
 record's B against the mean per-task need (25 bins), and merges that
 into the existing output.
+
+`--crossover` runs the sweep behind data/pipeline.py `agg_for` instead
+(default output measure_torch/bench_crossover.json): P in SWEEP_P, H in
+SWEEP_H, float32 and bf16, SWEEP_EDGES real edges per slot at the bin
+fills of SWEEP_FILLS, over SWEEP_BINS bins. At each point it times one
+meta-step's aggregation work of one layer on each path (`step_ms`: the
+precompute of both sets and the calls `calls_per_meta_step` counts), and
+reads off, per (dtype, P, H, fill), the edges per slot where the two
+paths cost the same (`crossover`; `crossover_table` turns it into
+data/pipeline.py's `CARD_CROSSOVER`).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import sys
 import time
@@ -53,7 +69,8 @@ from gmeta_tpu_torch.config import PRESETS
 from gmeta_tpu_torch.ops import sized_spmm as sp
 from gmeta_tpu_torch.ops.spmm import (aggregate, aggregate_dense,
                                       aggregate_ell, build_ell, densify)
-from gmeta_tpu_torch.scripts.common import ROOT, finish, fmt, parser, start
+from gmeta_tpu_torch.scripts.common import (OUT_DIR, ROOT, finish, fmt,
+                                            parser, start)
 from gmeta_tpu_torch.utils import cardtime
 
 # (feat, hidden) per recipe preset (config.py PRESETS + replica feature
@@ -83,6 +100,59 @@ FALLBACK = {
 
 TOLS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (8e-3, 8e-3)}
 DTYPES = (("f32", torch.float32), ("bf16", torch.bfloat16))
+
+# The crossover sweep (--crossover)
+SWEEP_P = (512, 1024)
+SWEEP_H = (1, 5, 50, 128, 256)        # every preset's aggregated widths
+SWEEP_EDGES = (1, 2, 4, 8, 16, 32, 64, 128, 256)  # real edges per slot
+SWEEP_FILLS = (0.5, 0.8)
+SWEEP_BINS = 128     # S of a call: one meta-step's tasks x B at the records
+SWEEP_PADS = 0.5     # pad edge slots per real edge (E rounds a set up)
+SWEEP_STEP = 10      # update_step of four of the five presets
+
+
+def densify_serial(edge_src, edge_dst, edge_mask, S, P, dtype=torch.float32):
+    """`densify` as it scattered before: `index_put_` with accumulate, every
+    pad edge adding its 0 into the one cell its clamped endpoints name. On
+    a CUDA tensor those adds run one after another. The yardstick of
+    `dense_*_pre_serial`; the same adjacency as `densify`."""
+    lead = edge_dst.shape[:-1]
+    n_lead = math.prod(lead)
+    edge_src = edge_src.reshape(n_lead, -1).long()
+    edge_dst = edge_dst.reshape(n_lead, -1).long()
+    sid = edge_dst // P
+    dst_l = edge_dst - sid * P
+    src_l = (edge_src - sid * P).clamp(0, P - 1)
+    lead_id = torch.arange(n_lead, device=edge_dst.device)[:, None]
+    flat = ((lead_id * S + sid) * P + dst_l) * P + src_l
+    A = torch.zeros(n_lead * S * P * P, dtype=dtype, device=edge_dst.device)
+    A.index_put_((flat.reshape(-1),),
+                 edge_mask.reshape(-1).to(dtype), accumulate=True)
+    return A.view(*lead, S, P, P)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two float32 or bf16 tensors are equal bit for bit."""
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(as_int[a.dtype]), b.view(as_int[b.dtype])))
+
+
+def calls_per_meta_step(update_step: int, track_curve: bool = True) -> dict:
+    """The aggregation work of one GraphConv layer in one first-order
+    meta-step (meta/maml.py `make_inner_loop`), for a layer whose input
+    takes a gradient (every layer but a layer 1 that aggregates first,
+    which makes only the forwards): one precompute per set, and the
+    forward and transposed calls of both sets together. With the curve
+    (the Trainer's default) the support set runs a forward at step 0 and
+    at each of the K steps, a transpose for each inner gradient and one
+    for the meta-gradient; the query set a forward at step 0 and after
+    each step, and the meta-gradient's transpose. Without it (the bench)
+    the step-0 forwards go and the query set runs one forward."""
+    K = update_step
+    if track_curve:
+        return {"pre": 2, "fwd": 2 * K + 2, "T": K + 2}
+    return {"pre": 2, "fwd": K + 1, "T": K + 2}
 
 
 def load_shapes(parity_dir=None) -> dict:
@@ -212,8 +282,13 @@ def bench_bucket(P, B, E, H, fill, tasks, rng, device, timer) -> dict:
 
         # dense: densify, then torch.bmm both ways
         A = densify(src_d, dst_d, mask_d, S, P, dtype=dtype)
+        if not same_bits(A, densify_serial(src_d, dst_d, mask_d, S, P,
+                                           dtype=dtype)):
+            raise AssertionError(f"densify {tag}: not densify_serial's")
         row[f"dense_{tag}_pre"] = timer.ms(
             lambda: densify(src_d, dst_d, mask_d, S, P, dtype=dtype))
+        row[f"dense_{tag}_pre_serial"] = timer.ms(
+            lambda: densify_serial(src_d, dst_d, mask_d, S, P, dtype=dtype))
         errs[f"dense_{tag}_fwd"] = _err(aggregate_dense(A, x), plain["fwd"],
                                         dtype, f"dense {tag} fwd")
         timer.both(row, f"dense_{tag}_fwd", lambda: aggregate_dense(A, x))
@@ -289,6 +364,154 @@ def global_b_ab(shapes, tasks, rng, device, timer) -> dict:
     return out
 
 
+def sweep_edges(P, S, per_slot, fill, rng):
+    """Packed edge lists of S bins of P slots: live sizes ~ N(fill, 0.05) P,
+    `per_slot` x S x P real edges uniform over each bin's live square (so
+    `per_slot` real edges per slot, pad slots included), dst
+    nondecreasing, then SWEEP_PADS pad edges per real edge (src 0, dst
+    S*P-1, mask 0). Returns (src, dst, mask) int32 / float32."""
+    sizes = np.clip((rng.normal(fill, 0.05, S) * P).astype(int), 1, P)
+    n = per_slot * S * P
+    bins = rng.randint(0, S, n)
+    src = bins * P + (rng.random_sample(n) * sizes[bins]).astype(np.int64)
+    dst = bins * P + (rng.random_sample(n) * sizes[bins]).astype(np.int64)
+    order = np.argsort(dst, kind="stable")
+    pad = int(SWEEP_PADS * n)
+    src = np.concatenate([src[order], np.zeros(pad, np.int64)])
+    dst = np.concatenate([dst[order], np.full(pad, S * P - 1)])
+    mask = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
+    return src.astype(np.int32), dst.astype(np.int32), mask
+
+
+def crossing(points):
+    """The edges per slot where sized's step time meets dense's, from
+    (edges per slot, sized / dense) points in rising edges: interpolated in
+    log-log between the last point where sized is faster and the next;
+    None where one path is faster at every point (`above` or `below`
+    says which)."""
+    for (e0, r0), (e1, r1) in zip(points, points[1:]):
+        if r0 < 1.0 <= r1:
+            t = math.log(r0) / (math.log(r0) - math.log(r1))
+            return math.exp(math.log(e0) + t * (math.log(e1) - math.log(e0)))
+    return None
+
+
+def crossover_sweep(device, timer, rng) -> dict:
+    """The sweep of `--crossover` over the SWEEP_* grid: per point the ms
+    of each call, and
+    `step_ms` of each path: one meta-step's precompute and calls of one
+    layer (`calls_per_meta_step`). The dense side is `densify` and
+    `aggregate_dense` (bf16 operands multiplied in float32, as the port
+    runs them) with the transpose as autograd runs it; the sized side
+    `sized_graph` and the kernel both ways. Each point's forward is held
+    against the other path's at the dtype's tolerance."""
+    P_list, H_list, fills, S = SWEEP_P, SWEEP_H, SWEEP_FILLS, SWEEP_BINS
+    calls = calls_per_meta_step(SWEEP_STEP)
+    rows = []
+    for P in P_list:
+        for fill in fills:
+            for per_slot in SWEEP_EDGES:
+                src, dst, mask = (torch.from_numpy(a).to(device) for a in
+                                  sweep_edges(P, S, per_slot, fill, rng))
+                nnz = int(mask.sum().item())
+                print(f"# crossover P={P} fill={fill} edges/slot "
+                      f"{per_slot}: {nnz} real of {mask.numel()}",
+                      file=sys.stderr, flush=True)
+                for tag, dtype in DTYPES:
+                    row = dict(P=P, fill=fill, edges_per_slot=per_slot,
+                               S=S, nnz=nnz, E=int(mask.numel()), dtype=tag)
+                    row["dense_pre"] = timer.ms(
+                        lambda: densify(src, dst, mask, S, P, dtype=dtype))
+                    row["sized_pre"] = timer.ms(
+                        lambda: sp.sized_graph(src, dst, mask, S, P))
+                    A = densify(src, dst, mask, S, P, dtype=dtype)
+                    graph = sp.sized_graph(src, dst, mask, S, P)
+                    A32 = A.float()
+                    by_H = {}
+                    for H in H_list:
+                        x = torch.randn(S, P, H, device=device).to(dtype)
+                        _err(sp.launch("fwd", graph, x),
+                             aggregate_dense(A, x), dtype,
+                             f"P={P} H={H} {tag} sized vs dense")
+                        r = {"dense_fwd": timer.ms(
+                                 lambda: aggregate_dense(A, x)),
+                             "dense_T": timer.ms(
+                                 lambda: torch.bmm(A32.mT, x.float())),
+                             "sized_fwd": timer.ms(
+                                 lambda: sp.launch("fwd", graph, x)),
+                             "sized_T": timer.ms(
+                                 lambda: sp.launch("bwd", graph, x))}
+                        for p in ("dense", "sized"):
+                            r[f"{p}_step_ms"] = (
+                                calls["pre"] * row[f"{p}_pre"]
+                                + calls["fwd"] * r[f"{p}_fwd"]
+                                + calls["T"] * r[f"{p}_T"])
+                        r["sized_over_dense"] = (r["sized_step_ms"]
+                                                 / r["dense_step_ms"])
+                        by_H[str(H)] = r
+                        del x
+                    row["by_H"] = by_H
+                    rows.append(row)
+                    del A, A32, graph
+                    if device.type == "cuda":
+                        torch.cuda.empty_cache()
+    crossover = {}
+    for tag, _ in DTYPES:
+        for P in P_list:
+            for H in H_list:
+                for fill in fills:
+                    pts = [(r["edges_per_slot"],
+                            r["by_H"][str(H)]["sized_over_dense"])
+                           for r in rows if (r["dtype"], r["P"], r["fill"])
+                           == (tag, P, fill)]
+                    e = crossing(pts)
+                    side = None if e is not None else (
+                        "sized" if pts[-1][1] < 1.0 else "dense")
+                    crossover[f"{tag} P={P} H={H} fill={fill}"] = {
+                        "edges_per_slot": e, "faster_everywhere": side}
+    return {"calls": calls, "update_step": SWEEP_STEP, "bins": S,
+            "pads_per_real_edge": SWEEP_PADS, "rows": rows,
+            "crossover": crossover}
+
+
+def crossover_table(sweep) -> dict:
+    """data/pipeline.py `CARD_CROSSOVER` from a sweep: per dtype ("float32",
+    "bfloat16"), P and H the lower of the fills' crossings, or where sized
+    was faster at every point the sweep's largest edges per slot, the edge
+    of the measurement."""
+    names = {"f32": "float32", "bf16": "bfloat16"}
+    edge = max(r["edges_per_slot"] for r in sweep["rows"])
+    table = {}
+    for key, c in sweep["crossover"].items():
+        tag, P, H, _ = key.split(" ")
+        e = c["edges_per_slot"]
+        if e is None:
+            e = edge if c["faster_everywhere"] == "sized" else 0.0
+        e, H = round(e, 1), int(H[2:])
+        by_H = table.setdefault(names[tag], {}).setdefault(int(P[2:]), {})
+        by_H[H] = min(e, by_H.get(H, e))
+    return table
+
+
+def sweep_table(sweep) -> list:
+    lines = ["| dtype | P | H | fill | " + " | ".join(
+        f"{e}/slot" for e in sorted({r["edges_per_slot"]
+                                     for r in sweep["rows"]}))
+             + " | crossover |"]
+    lines.append("|---" * (len(lines[0].split("|")) - 2) + "|")
+    for key, c in sweep["crossover"].items():
+        tag, P, H, fill = key.split(" ")
+        P, H, fill = int(P[2:]), H[2:], float(fill[5:])
+        ratios = [fmt(r["by_H"][H]["sized_over_dense"])
+                  for r in sweep["rows"]
+                  if (r["dtype"], r["P"], r["fill"]) == (tag, P, fill)]
+        cross = (fmt(c["edges_per_slot"], 1) if c["edges_per_slot"]
+                 else f"{c['faster_everywhere']} everywhere")
+        lines.append(f"| {tag} | {P} | {H} | {fill} | "
+                     + " | ".join(ratios) + f" | {cross} |")
+    return lines
+
+
 def table(results) -> list:
     lines = ["| bucket | S | H | dtype | dense pre | dense fwd | dense T |"
              " sized pre | sized fwd | sized T | sized bound fwd |"
@@ -321,10 +544,22 @@ def main(argv=None):
     ap.add_argument("--parity_dir", default=None,
                     help="where the runs of record lie (default parity/)")
     ap.add_argument("--global-b-ab", action="store_true")
+    ap.add_argument("--crossover", action="store_true")
     args = ap.parse_args(argv)
     device, head = start(args.device)
     timer = Timer(device, args.iters)
     rng = np.random.RandomState(0)
+
+    if args.crossover:
+        out = args.out
+        if out == ap.get_default("out"):
+            out = str(OUT_DIR / "bench_crossover.json")
+        before = dict(sp.launches)
+        sweep = crossover_sweep(device, timer, rng)
+        sweep.update(head, unit="ms", iters=args.iters,
+                     launches={d: sp.launches[d] - before[d]
+                               for d in before})
+        return finish(sweep, out, sweep_table(sweep))
     shapes = load_shapes(args.parity_dir)
     before = dict(sp.launches)
 

@@ -86,6 +86,28 @@ def test_load_parity_falls_back_without_a_record():
     assert bench._load_parity("no_such_recipe") is None
 
 
+@pytest.mark.parametrize("device, want", [("cpu", "dense"),
+                                          ("cuda", "sized")])
+def test_synthetic_shape_takes_autos_choice(monkeypatch, device, want):
+    """A shape without a record runs what agg="auto" picks for its
+    synthetic split on the device: the JAX package's rule on the CPU, the
+    card's crossover on CUDA (data/pipeline.py `agg_for`; naming a CUDA
+    device needs no card here: nothing runs on it)."""
+    from gmeta_tpu_torch.data.pipeline import agg_for
+    from gmeta_tpu_torch.data.synthetic import synthetic_disjoint
+    store, ds = synthetic_disjoint(
+        num_graphs=1, nodes_per_graph=150, avg_degree=5, feat_dim=8,
+        num_classes=9, n_way=3, k_spt=3, k_qry=4, batchsz=4, h=2,
+        sample_nodes=60, seed=3)
+    monkeypatch.setattr(bench, "_load_parity", lambda name: None)
+    monkeypatch.setattr(bench, "_build_dataset",
+                        lambda name, s, pool: (store, ds["train"], 3))
+    data = bench.shape_data("fold_ppi", bench.SHAPES["fold_ppi"], pool=4,
+                            device=device)
+    assert data.geometry == "synthetic" and data.agg == want
+    assert agg_for(ds["train"], torch.device(device)) == want
+
+
 # --- a cut replay against the JAX MetaLearner --------------------------------
 
 CUT = dict(hidden=16, task_num=2, update_step=2)

@@ -290,6 +290,60 @@ def test_bf16_forward_on_cuda_matches_cpu(cuda):
     torch.testing.assert_close(got, want, rtol=8e-3, atol=8e-3)
 
 
+# ---- densify and agg="auto" on the card -------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_densify_on_cuda_equals_cpu_bitwise_without_a_sync(cuda, dtype):
+    """`densify` over three tasks on the card, with duplicates and pad
+    edges in both forms (src 0 and, as the compact pool decodes them,
+    src (B-1)*P; dst B*P-1), equals its CPU result bit for bit, and makes
+    no host sync (a sync raises under set_sync_debug_mode("error"))."""
+    rng = np.random.RandomState(0)
+    T, B, P, n_real, n_pad = 3, 4, 256, 5000, 3000
+    src = np.zeros((T, n_real + n_pad), np.int64)
+    dst = np.full((T, n_real + n_pad), B * P - 1, np.int64)
+    mask = np.zeros((T, n_real + n_pad), np.float32)
+    for t in range(T):
+        b = rng.randint(0, B, n_real)
+        d = b * P + rng.randint(0, 200, n_real)
+        s_ = b * P + rng.randint(0, 200, n_real)
+        s_[: n_real // 5], d[: n_real // 5] = s_[-(n_real // 5):], \
+            d[-(n_real // 5):]                      # duplicates
+        order = np.argsort(d, kind="stable")
+        src[t, :n_real], dst[t, :n_real] = s_[order], d[order]
+        mask[t, :n_real] = 1.0
+    src[1, n_real:] = (B - 1) * P
+    args = [torch.from_numpy(a) for a in (src, dst, mask)]
+    want = densify(*args, B, P, dtype=dtype)
+    on_card = [a.to(cuda) for a in args]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = densify(*on_card, B, P, dtype=dtype)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.cpu().view(bits), want.view(bits))
+    assert float(want.float().max()) >= 2.0
+
+
+def test_trainer_auto_on_cuda_picks_by_the_card_rule(cuda, capsys):
+    """A Trainer on the card with agg="auto" resolves it by the card's
+    crossover (`agg_for` on CUDA), not by the JAX package's rule, which
+    picks dense for this split; its meta-step then launches the kernel."""
+    from gmeta_tpu_torch.data.pipeline import agg_for
+    store, ds = _tiny()
+    cfg = Config(n_way=3, k_spt=3, k_qry=4, h=2, hidden_dim=16, task_num=4,
+                 update_step=2, update_step_test=2, agg="auto")
+    tr = Trainer(cfg, store, ds, labels_num=3, device=cuda)
+    assert tr.agg == agg_for(ds["train"], cuda, tr.spec, "float32")
+    assert tr.agg == "sized" and ds["train"].suggested_agg == "dense"
+    assert "by the card's crossover" in capsys.readouterr().out
+    before = dict(sized_spmm.launches)
+    tr.learner.train_step(next(ds["train"].batches(4, shuffle=False)))
+    torch.cuda.synchronize()
+    assert all(sized_spmm.launches[d] > before[d] for d in before)
+
+
 # ---- device extractor and remat on the card --------------------------------
 
 def test_device_extractor_on_cuda_equals_cpu_uncapped(cuda):

@@ -174,3 +174,30 @@ def test_activation_parity_on_a_small_replica(tmp_path):
                                    cfg.link_pred_mode, torch.device("cpu"))
     assert act["n_checked"] == 6 and len(act["max_rel_diff_per_layer"]) == 2
     assert act["allclose_1e-4"], act
+
+
+def test_report_lists_each_tag_and_checks_it(tmp_path, monkeypatch):
+    """--report writes a row per training result and tag of REPORT_TAGS
+    (a run under agg="auto" beside the earlier one), with its aggregation
+    and wall split; --check fails once a row disagrees with its JSON."""
+    import json
+    import shutil
+    monkeypatch.setattr(parity, "REPORT", str(tmp_path / "REPORT.md"))
+    shutil.copy(ROOT / "parity_torch" / "fold_ppi.json",
+                tmp_path / "fold_ppi.json")
+    auto = json.loads((ROOT / "parity_torch" / "fold_ppi.json").read_text())
+    auto.update(agg="sized", tasks_per_s=701.25)
+    (tmp_path / "fold_ppi_auto.json").write_text(json.dumps(auto))
+    parity.write_report(str(tmp_path))
+    rows = [l for l in (tmp_path / "REPORT.md").read_text().splitlines()
+            if l.startswith("| fold_ppi")]
+    assert [r.split("|")[1].strip() for r in rows] == ["fold_ppi",
+                                                       "fold_ppi_auto"]
+    assert "| dense |" in rows[0] and "| sized | 701.2 (" in rows[1]
+    w = auto["wall_s"]
+    assert (f"| {w['replica_gen']} / {w['data_and_extraction']} / "
+            f"{w['train_and_eval']} |") in rows[1]
+    auto["agg"] = "dense"
+    (tmp_path / "fold_ppi_auto.json").write_text(json.dumps(auto))
+    with pytest.raises(SystemExit, match="fold_ppi_auto: table lacks"):
+        parity.check_report(str(tmp_path))

@@ -4,7 +4,9 @@ package's (scripts/bench_*.py): their synthetic data drawn bitwise alike
 paths they time against the JAX package's on one bucket, bench_transfer's
 pool and stream steps against each other and against the JAX
 MetaLearner, each script's main() on the CPU at a tiny size, and the
-shared bounds of utils/cardtime.py."""
+shared bounds of utils/cardtime.py; and the port's own: bench_kernels'
+crossover sweep, its count of a meta-step's aggregation calls against
+the code's, and bench_agg."""
 
 import json
 import math
@@ -21,10 +23,14 @@ from gmeta_tpu.data.pack import TaskBatch as JTaskBatch
 from gmeta_tpu.meta import maml as jmaml
 from gmeta_tpu.ops import spmm as jspmm
 from gmeta_tpu.ops.pallas_spmm import sized_reference
+from gmeta_tpu_torch import bench
+from gmeta_tpu_torch.config import Config, build_model_config
 from gmeta_tpu_torch.data import replicas
+from gmeta_tpu_torch.data.synthetic import synthetic_disjoint
+from gmeta_tpu_torch.meta.maml import MetaLearner
 from gmeta_tpu_torch.ops import sized_spmm as sp
 from gmeta_tpu_torch.ops import spmm
-from gmeta_tpu_torch.scripts import (bench_edgepart, bench_edges,
+from gmeta_tpu_torch.scripts import (bench_agg, bench_edgepart, bench_edges,
                                      bench_kernels, bench_pallas_spmm,
                                      bench_transfer)
 from gmeta_tpu_torch.utils import cardtime
@@ -248,6 +254,126 @@ def test_bench_kernels_main_writes_its_json(records, tmp_path):
     assert ab["global_b_ab"]["speedup_ceiling"] > 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_densify_serial_is_densify_bit_for_bit(dtype):
+    """The old scatter (`densify_serial`, the yardstick the script times)
+    and `densify` give the same adjacency, pads and duplicates included."""
+    rng = np.random.RandomState(3)
+    A, _, _, src, dst, mask = bench_kernels.synth_bucket(
+        32, 6, 900, 4, 0.6, rng)
+    args = [torch.from_numpy(a) for a in (src, dst, mask)]
+    got = spmm.densify(*args, 6, 32, dtype=dtype)
+    assert bench_kernels.same_bits(
+        got, bench_kernels.densify_serial(*args, 6, 32, dtype=dtype))
+    np.testing.assert_array_equal(got.float().numpy(), A)
+    assert not bench_kernels.same_bits(got, got.to(torch.float64)
+                                       .to(dtype).add(1))
+
+
+@pytest.mark.parametrize("track", [True, False])
+@pytest.mark.parametrize("K", [1, 3])
+def test_calls_per_meta_step_counts_the_code(K, track):
+    """One meta-step's aggregation calls, tallied by count_aggregation on
+    a two-layer model whose layer 1 aggregates first (feat 16 < hidden
+    32): layer 1 makes the forwards only, layer 2 the forwards and the
+    transposes, both sets together, as `calls_per_meta_step` counts."""
+    store, ds = synthetic_disjoint(
+        num_graphs=1, nodes_per_graph=300, avg_degree=6, feat_dim=16,
+        num_classes=9, n_way=3, k_spt=3, k_qry=4, batchsz=4, h=2,
+        sample_nodes=64, seed=3)
+    spec = build_model_config(Config(hidden_dim=32), 16, 3)
+    ml = MetaLearner(spec, 3, update_lr=0.05, meta_lr=1e-3, update_step=K,
+                     update_step_test=1, seed=5, agg="sized", device="cpu",
+                     track_curve=track)
+    ml.set_features(store.features)
+    with spmm.count_aggregation() as work:
+        ml.train_step(next(ds["train"].batches(2, shuffle=False)))
+    calls = bench_kernels.calls_per_meta_step(K, track)
+    widths = [H for _, H in work.edges]
+    assert widths.count(16) == calls["fwd"]
+    assert widths.count(32) == calls["fwd"] + calls["T"]
+    assert calls["pre"] == 2
+
+
+def test_crossing_interpolates_in_log_log():
+    assert bench_kernels.crossing([(1, 0.5), (2, 0.8), (4, 1.25)]) == \
+        pytest.approx(2 ** 1.5)
+    assert bench_kernels.crossing([(1, 0.5), (2, 0.6)]) is None
+    assert bench_kernels.crossing([(1, 1.5), (2, 2.0)]) is None
+
+
+def test_crossover_sweep_main_writes_its_json(monkeypatch, tmp_path):
+    """--crossover at a tiny grid on the CPU: every point's calls held
+    against the other path and timed, step_ms of each path from the
+    counted calls, and a crossover entry per (dtype, P, H, fill)."""
+    for k, v in dict(SWEEP_P=(16, 32), SWEEP_H=(1, 8), SWEEP_EDGES=(1, 2),
+                     SWEEP_FILLS=(0.5,), SWEEP_BINS=3).items():
+        monkeypatch.setattr(bench_kernels, k, v)
+    out = tmp_path / "crossover.json"
+    res = bench_kernels.main(["--device", "cpu", "--iters", "1",
+                              "--crossover", "--out", str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(res))
+    assert res["calls"] == {"pre": 2, "fwd": 22, "T": 12}
+    assert len(res["rows"]) == 2 * 1 * 2 * 2
+    for row in res["rows"]:
+        assert row["nnz"] == row["edges_per_slot"] * 3 * row["P"]
+        assert row["E"] == int(1.5 * row["nnz"])
+        for r in row["by_H"].values():
+            for p in ("dense", "sized"):
+                assert r[f"{p}_step_ms"] == pytest.approx(
+                    2 * row[f"{p}_pre"] + 22 * r[f"{p}_fwd"]
+                    + 12 * r[f"{p}_T"])
+            assert r["sized_over_dense"] == pytest.approx(
+                r["sized_step_ms"] / r["dense_step_ms"])
+    assert len(res["crossover"]) == 2 * 2 * 2 * 1
+    for c in res["crossover"].values():
+        assert (c["edges_per_slot"] is None) != (
+            c["faster_everywhere"] is None)
+
+
+def _tiny_record(name):
+    return {"buckets": {"P_spt": 128, "B_spt": 2, "E_spt": 1536,
+                        "P_qry": 128, "B_qry": 3, "E_qry": 2560},
+            "mean_bin_fill": 0.6, "agg": "dense", "tasks_per_s": 100.0,
+            "edges_per_s": 250_000.0,
+            "preset_overrides": {"device_task_pool": True}}
+
+
+def test_bench_agg_main_writes_its_json(monkeypatch, tmp_path):
+    """bench_agg cut: two shapes at hidden 8, one inner step, records at
+    P 128, one meta-step a run; dense and sized in turns, what auto picks
+    on the card and on the CPU, and two synthetic geometries at half and
+    twice the crossover, where the card's rule picks sized, then dense."""
+    cut = {n: dict(bench.SHAPES[n], hidden=8, task_num=2, update_step=1)
+           for n in ("firstmm_db", "tree_of_life")}
+    monkeypatch.setattr(bench, "SHAPES", cut)
+    monkeypatch.setattr(bench, "POOL", 3)
+    monkeypatch.setattr(bench, "_load_parity", _tiny_record)
+    monkeypatch.setattr(bench_agg, "SYNTH_POOL", 3)
+    out = tmp_path / "agg.json"
+    res = bench_agg.main(["--device", "cpu", "--steps", "1", "--sweep",
+                          str(tmp_path / "none.json"), "--out", str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(res))
+    rows = res["geometries"]
+    assert list(rows) == ["firstmm_db", "tree_of_life",
+                          "tree_of_life@0.5x_crossover",
+                          "tree_of_life@2x_crossover"]
+    assert res["sweep_crossover"] is None
+    for key, r in rows.items():
+        assert [len(r["runs"][a]) for a in ("dense", "sized")] == [2, 2]
+        assert r["auto_cpu"] == "dense" and r["H"] == 8
+        assert r["faster"] in ("dense", "sized")
+        assert all(x["tasks_per_s"] > 0 for a in r["runs"].values()
+                   for x in a)
+    assert rows["tree_of_life"]["auto_card"] == "sized"
+    assert rows["tree_of_life"]["dtype"] == "bfloat16"
+    synth = [rows[f"tree_of_life@{f}x_crossover"] for f in ("0.5", "2")]
+    assert [r["auto_card"] for r in synth] == ["sized", "dense"]
+    assert [r["dtype"] for r in synth] == ["float32", "float32"]
+    assert synth[1]["edges_per_slot"] == pytest.approx(
+        2 * res["synthetic_crossover"], rel=0.01)
+
+
 def test_bench_pallas_spmm_main_writes_its_json(tmp_path):
     out = tmp_path / "pallas.json"
     res = bench_pallas_spmm.main(["--device", "cpu", "--shape", "3", "128",
@@ -318,7 +444,7 @@ def test_bench_edgepart_without_a_replica_raises(tmp_path):
 
 @pytest.mark.parametrize("module", [bench_kernels, bench_pallas_spmm,
                                     bench_transfer, bench_edges,
-                                    bench_edgepart])
+                                    bench_edgepart, bench_agg])
 def test_scripts_raise_without_cuda(module, tmp_path):
     """With no --device, a script runs on the card; without one it raises
     rather than fall back to the CPU."""
@@ -372,3 +498,14 @@ def test_rounding_bound_holds_for_two_orders():
         other = sp.csr_plain(row_ptr, torch.from_numpy(rev), xd).double()
         assert (np.abs(one.numpy() - other.numpy()) <= bound).all()
         assert (np.abs(one.numpy() - exact) <= bound).all()
+
+
+def test_card_crossover_is_the_committed_sweeps():
+    """data/pipeline.py's CARD_CROSSOVER is `crossover_table` of the sweep
+    committed in measure_torch/bench_crossover.json, number for number."""
+    from gmeta_tpu_torch.data.pipeline import CARD_CROSSOVER
+    sweep = json.loads((ROOT / "measure_torch" / "bench_crossover.json")
+                       .read_text())
+    assert bench_kernels.crossover_table(sweep) == CARD_CROSSOVER
+    assert sweep["kind"] == "NVIDIA H100 80GB HBM3"
+    assert sweep["calls"] == bench_kernels.calls_per_meta_step(10)

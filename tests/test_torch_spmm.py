@@ -112,6 +112,69 @@ def test_densify_degrees_dense_match_jax():
             rtol=1e-5, atol=1e-5)
 
 
+def _pad_case(pads, T=3, S=3, P=16, seed=0):
+    """(T, E) packed edge lists: real edges inside each bin's live corner,
+    dst nondecreasing, a quarter of them duplicated, and masked edges laid
+    out as `pads` says: "tail" (the packer's: src 0, dst S*P-1, after the
+    real edges), "compact" (as the compact pool decodes them: src
+    (S-1)*P), "anywhere" (interleaved at random positions, endpoints
+    random over all S*P slots, bins crossed), or "more_than_cells" (the
+    packer's pads, E above S*P*P)."""
+    rng = np.random.RandomState(seed)
+    if pads == "more_than_cells":
+        S, P = 2, 3
+    rows = []
+    for _ in range(T):
+        b = rng.randint(0, S, 40)
+        n = rng.randint(1, P + 1, S)
+        d = b * P + (rng.rand(40) * n[b]).astype(np.int64)
+        s = b * P + (rng.rand(40) * n[b]).astype(np.int64)
+        dup = rng.rand(40) < 0.25
+        d, s = np.concatenate([d, d[dup]]), np.concatenate([s, s[dup]])
+        order = np.argsort(d, kind="stable")
+        rows.append((s[order], d[order]))
+    E = max(len(s) for s, _ in rows) + 30
+    src = np.zeros((T, E), np.int64)
+    dst = np.full((T, E), S * P - 1, np.int64)
+    mask = np.zeros((T, E), np.float32)
+    for t, (s, d) in enumerate(rows):
+        src[t, :len(s)], dst[t, :len(d)], mask[t, :len(s)] = s, d, 1.0
+        if pads == "compact":
+            src[t, len(s):] = (S - 1) * P
+        elif pads == "anywhere":
+            perm = rng.permutation(E)
+            src[t], dst[t], mask[t] = src[t, perm], dst[t, perm], mask[t, perm]
+            dead = mask[t] == 0
+            src[t, dead] = rng.randint(0, S * P, dead.sum())
+            dst[t, dead] = rng.randint(0, S * P, dead.sum())
+    if pads == "more_than_cells":
+        assert E > S * P * P
+    return src.astype(np.int32), dst.astype(np.int32), mask, S, P
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pads", ["tail", "compact", "anywhere",
+                                  "more_than_cells"])
+def test_densify_bitwise_equals_jax(pads, dtype):
+    """`densify` over a task axis, each masked edge adding its 0 into a
+    cell of its own, equals JAX's `densify` of each task bit for bit:
+    duplicates counted, masked edges wherever they lie adding nothing."""
+    src, dst, mask, S, P_ = _pad_case(pads)
+    A = densify(torch.from_numpy(src), torch.from_numpy(dst),
+                torch.from_numpy(mask), S, P_, dtype=getattr(torch, dtype))
+    assert A.shape == (3, S, P_, P_) and A.dtype == getattr(torch, dtype)
+    assert (mask == 0).any() and float(A.float().max()) >= 2.0
+    bits = {"float32": (torch.int32, np.int32),
+            "bfloat16": (torch.int16, np.int16)}[dtype]
+    for t in range(3):
+        A_j = np.asarray(jspmm.densify(
+            jnp.asarray(src[t]), jnp.asarray(dst[t]), jnp.asarray(mask[t]),
+            S, P_, dtype=getattr(jnp, dtype)))
+        np.testing.assert_array_equal(A[t].view(bits[0]).numpy(),
+                                      A_j.view(bits[1]))
+        assert float(A[t].float().sum()) == float(mask[t].sum())
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_sized_graph_equals_jax_densify(seed):
     """Both CSRs summed back into blocks are JAX's densify exactly, and
