@@ -90,7 +90,9 @@ Phases; any failure raises and the script exits non-zero:
                 the same V and nnz (both directions, H = 128 and 256,
                 float32; `time_rect`), against its plain version, the
                 row-wise body it ran before, torch.sparse.mm and its bound,
-                and the combine kernel alone; then main() with
+                and the combine kernel alone (H = 128 and 256, float32
+                and bf16 rows, single launches and back to back); then
+                main() with
                 --mesh_edges 1 on a power-law graph of that size (depth cut
                 as in (c)), whose split rows launch the combine kernel.
                 (c) ranks sharing this card over gloo, each a process of
@@ -224,9 +226,10 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 try:
-    from gmeta_tpu_torch.utils.cardtime import (FP32_PEAK, HBM_BYTES_S,
-                                                card_line, cuda_ms,
-                                                gather_bound, rounding_bound)
+    from gmeta_tpu_torch.utils.cardtime import (HBM_BYTES_S, card_line,
+                                                combine_bound, cuda_ms,
+                                                cuda_ms_b2b, gather_bound,
+                                                rounding_bound)
 except ImportError as e:
     raise SystemExit(f"chip_smoke: the gmeta_tpu_torch package is not "
                      f"beside this script ({e})")
@@ -1154,11 +1157,12 @@ def time_rect(pair, device):
     `combine_plain` on exact partials. Times (medians of CUDA-event
     times): the kernel, the row-wise body, the plain version and
     torch.sparse.mm of the same CSR, beside `gather_bound`; the combine
-    kernel alone beside its own bound. Returns ({(graph, count, H): row},
-    the combine kernel's row, shapes)."""
+    kernel alone on the power-law forward CSR's split rows beside its own
+    bound (`time_combine`). Returns ({(graph, count, H): row}, the combine
+    kernel's rows by "dtype H", shapes)."""
     import torch
     from gmeta_tpu_torch.ops import sized_spmm as sp
-    rows, combine = {}, None
+    rows, combine = {}, {}
     g = torch.Generator(device=device).manual_seed(1)
     n_dst, n_src = pair.row_ptr.numel() - 1, pair.row_ptr_t.numel() - 1
     nnz = pair.col.numel()
@@ -1201,9 +1205,9 @@ def time_rect(pair, device):
                     assert ((got - want).abs()
                             <= rounding_bound(row_ptr, col, x)).all()
                 e = (got - want).abs().max().item()
-                if count == "fwd" and graph == "powerlaw" and H == 256:
-                    combine = time_combine(split, row_ptr, col, xi, exact,
-                                           device)
+                if count == "fwd" and graph == "powerlaw":
+                    combine.update(time_combine(split, row_ptr, col, xi,
+                                                exact, device))
                 del xi, exact, got, want
                 row = rows[(graph, count, H)] = dict(timed_row(
                     lambda: sp.csr_gather(row_ptr, col, x, count, split),
@@ -1238,11 +1242,15 @@ def time_rect(pair, device):
 
 def time_combine(split, row_ptr, col, xi, exact, device):
     """The combine kernel alone on the power-law CSR's split rows at
-    H = xi's width: the chunks' float32 partial sums of the small-integer
-    table xi (exact, so the kernel must equal `combine_plain` bitwise, and
-    the rows it writes must equal `exact`, the plain gather), timed beside
-    combine_plain, one index_add_ that sums the partials per row, and its
-    bound: the partials read once, the split rows written once."""
+    H = xi's width, into float32 and bf16 rows: the chunks' float32
+    partial sums of the small-integer table xi (exact, so the kernel must
+    equal `combine_plain` bitwise, and the rows it writes must equal
+    `exact`, the plain gather, rounded once to the row's dtype), and of a
+    normal table, where the kernel must equal `combine_plain` on the CPU
+    (which adds in chunk order) bitwise and leave every other row of out
+    as it was. Timed, single launches and back to back, beside
+    combine_plain, one index_add_ that sums the partials per row, and
+    `combine_bound`. Returns {"<dtype> <H>": row}."""
     import torch
     from gmeta_tpu_torch.ops import sized_spmm as sp
     H = xi.shape[1]
@@ -1256,30 +1264,56 @@ def time_combine(split, row_ptr, col, xi, exact, device):
                                                  device=device), per)
     partial = torch.zeros((per.numel(), H), device=device).index_add_(
         0, owner, xi[col[edge].long()])
-    out = torch.zeros_like(exact)
-    got = sp.csr_combine(split, partial, out.clone())
-    assert torch.equal(got, sp.combine_plain(split, partial, out.clone()))
-    assert torch.equal(got[split.rows.long()], exact[split.rows.long()])
+    g = torch.Generator(device=device).manual_seed(H)
+    noise = torch.randn(partial.shape, device=device, generator=g)
     n_split = split.rows.numel()
     owner_row = torch.repeat_interleave(
         torch.arange(n_split, device=device),
         (split.chunk_ptr[1:] - split.chunk_ptr[:-1]).long())
-    nbytes = 4.0 * (partial.numel() + n_split * H + 2 * n_split + 1)
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, partial.numel() / FP32_PEAK
-    row = dict(
-        ms=cuda_ms(lambda: sp.csr_combine(split, partial, out)),
-        plain_ms=cuda_ms(lambda: sp.combine_plain(split, partial, out)),
-        library_ms=cuda_ms(lambda: torch.zeros(
-            (n_split, H), device=device).index_add_(0, owner_row, partial)),
-        bound_ms=1e3 * max(t_bytes, t_ops),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        max_abs_err=0.0, split_rows=n_split, chunks=per.numel(), H=H)
-    log(f"  combine kernel, {n_split} split rows from {per.numel()} chunks, "
-        f"H={H}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-        f"index_add_ {row['library_ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); equal to "
-        f"combine_plain and to the plain gather")
-    return row
+    split_cpu, noise_cpu = split.to("cpu"), noise.cpu()
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        out = torch.zeros(exact.shape, dtype=dtype, device=device)
+        got = sp.csr_combine(split, partial, out.clone())
+        assert torch.equal(got, sp.combine_plain(split, partial, out.clone()))
+        assert torch.equal(got[split.rows.long()],
+                           exact[split.rows.long()].to(dtype))
+        sentinel = torch.full(exact.shape, 7.0, dtype=dtype, device=device)
+        got = sp.csr_combine(split, noise, sentinel.clone())
+        assert torch.equal(got.cpu(), sp.combine_plain(
+            split_cpu, noise_cpu, sentinel.cpu()))
+        assert torch.equal(got, sp.csr_combine(split, noise,
+                                               sentinel.clone()))
+        del got, sentinel
+        bound_ms, bound_by, _ = combine_bound(
+            per.numel(), n_split, H, out.element_size())
+
+        def kernel():
+            sp.csr_combine(split, partial, out)
+
+        def library():
+            torch.zeros((n_split, H), device=device).index_add_(
+                0, owner_row, partial)
+        name = str(dtype).removeprefix("torch.")
+        row = rows[f"{name} {H}"] = dict(
+            ms=cuda_ms(kernel), ms_b2b=cuda_ms_b2b(kernel),
+            plain_ms=cuda_ms(lambda: sp.combine_plain(split, partial, out)),
+            library_ms=cuda_ms(library), library_ms_b2b=cuda_ms_b2b(library),
+            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0,
+            split_rows=n_split, chunks=per.numel(),
+            longest_row_chunks=int(
+                (split.chunk_ptr[1:] - split.chunk_ptr[:-1]).max()),
+            H=H, dtype=name)
+        log(f"  combine kernel, {n_split} split rows from {per.numel()} "
+            f"chunks, H={H} {name}: {row['ms']:.4f} ms (back to back "
+            f"{row['ms_b2b']:.4f}; {100 * bound_ms / row['ms']:.1f}% / "
+            f"{100 * bound_ms / row['ms_b2b']:.1f}% of the bound), plain "
+            f"{row['plain_ms']:.4f} ms, index_add_ {row['library_ms']:.4f} "
+            f"ms (back to back {row['library_ms_b2b']:.4f}), bound "
+            f"{bound_ms:.4f} ms ({bound_by}); equal to combine_plain and "
+            f"to the plain gather")
+        del out
+    return rows
 
 
 def powerlaw_edges(V, nnz, seed=0):
@@ -2513,11 +2547,11 @@ def main():
         "launches_phase_11": dry11["combine"],
         "launches_phase_12": l12["combine"],
         "launches_phase_13": l13["combine"],
-        **{k: combine_row[k] for k in (
+        **{k: combine_row["float32 256"][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "split_rows", "chunks")},
-        "shape": f"{rect_shapes['powerlaw']} forward, H={combine_row['H']}"
-                 f" float32",
+        "shape": f"{rect_shapes['powerlaw']} forward, H=256 float32",
+        "by_dtype_H": combine_row,
     })
     kernels.append({
         "name": "sized_spmm_shared",

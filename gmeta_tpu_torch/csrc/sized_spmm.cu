@@ -88,6 +88,27 @@
 //   and rounded once as it stores; a split row's partial sums stay float32
 //   until the combine rounds them. No atomics, so two launches give the
 //   same bits.
+//
+// The combine body: its bound is bytes (the partials read once, the split
+// rows written once), a few us at chip_smoke.py's power-law CSR. What held
+// the body it replaced back (a block of 256 scalar lanes per split row,
+// each adding one chunk after another) was its longest rows: the adds
+// must run in chunk order from 0.0f, so that the result is combine_plain's
+// bit for bit, and one warp streams a row's partials at a few tens of GB/s
+// however deep its loads run ahead (PERF.md: 4 to 32 chunks in flight a
+// lane moved the 729-chunk row by 1.3x). Only the loads can be spread. So
+// a row of more than HEAVY_CHUNKS chunks is cut into bands of HEAVY_BAND
+// column vectors (128 bytes of each partial row at float32), and the
+// bands go to different blocks of a set of one per SM: so one row streams
+// through several SMs. There all 256 threads of a block load the next
+// round of a band (streaming loads) into registers while the band's owner
+// lanes add the round before from a shared tile, in chunk order, reading
+// ADD_BATCH tile rows ahead. Every other row gets the fewest lanes (a
+// power of two, up to a block) that cover H in one float4 (or scalar)
+// each, a block as many rows as it holds, so at H = 1, 5 and 50 blocks do
+// not sit mostly idle; each lane loads COMBINE_DEPTH chunks before it adds
+// them. Stores are float4, or 4 bf16 as 8 bytes. PERF.md has the times
+// beside the replaced body's and the variants sweep_sized_spmm.py tried.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -99,6 +120,17 @@ constexpr int THREADS = 256;  // threads per block
 constexpr int MIN_BLOCKS = 2048 / THREADS;  // a full SM: 32 registers
 // The full-graph body's: 64 registers, for its edges loaded 4 at a time
 constexpr int SLAB_MIN_BLOCKS = 4;
+// The combine: a row of more than HEAVY_CHUNKS chunks is summed in bands
+// of HEAVY_BAND column vectors, each by a whole block through a shared
+// tile of COMBINE_TILE floats (32 KB), its owners reading ADD_BATCH tile
+// rows ahead; a lane of a lighter row loads COMBINE_DEPTH chunks' partial
+// sums before adding them (sweep_sized_spmm.py combine times the others).
+constexpr int HEAVY_CHUNKS = 128;
+constexpr int HEAVY_BAND = 8;
+constexpr int COMBINE_TILE = 8192;
+constexpr int ADD_BATCH = 8;
+constexpr int COMBINE_DEPTH = 16;
+static_assert(HEAVY_BAND <= THREADS, "a band's vectors each need an owner");
 
 // Vectors per lane per pass over H: 8 elements for the 16-byte paths (two
 // float4, one 8 x bf16), which keeps registers at float32's count for bf16.
@@ -150,6 +182,20 @@ struct Vec<__nv_bfloat16, 8> {
     for (int i = 0; i < 4; ++i)
       b[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
     __stcs(reinterpret_cast<uint4*>(p), q);
+  }
+};
+
+// Four bf16 as one 8-byte streaming store (the combine's rows; it reads
+// float32 partial sums, four to a 16-byte load, and never loads bf16).
+template <>
+struct Vec<__nv_bfloat16, 4> {
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&v)[4]) {
+    uint2 q;
+    __nv_bfloat162* b = reinterpret_cast<__nv_bfloat162*>(&q);
+    b[0] = __floats2bfloat162_rn(v[0], v[1]);
+    b[1] = __floats2bfloat162_rn(v[2], v[3]);
+    __stcs(reinterpret_cast<uint2*>(p), q);
   }
 };
 
@@ -348,24 +394,237 @@ __global__ void __launch_bounds__(THREADS, SLAB_MIN_BLOCKS)
   }
 }
 
+// Streaming (evict-first) load of VEC float32 partial sums: each is read
+// once.
+template <int VEC>
+__device__ __forceinline__ void load_partial(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    v[0] = __ldcs(p);
+  }
+}
+
+// A heavy row's round of chunks [c, c + R) over the band of bn vectors from
+// b0: element e = threadIdx.x + i THREADS is chunk c + e / bn, vector b0 +
+// e % bn, loaded into v[i].
+template <int VEC, int LOADS>
+__device__ __forceinline__ void load_round(const float* __restrict__ partial,
+                                           int c, int c1, int R, int bn,
+                                           int b0, int H,
+                                           float (&v)[LOADS][VEC]) {
+#pragma unroll
+  for (int i = 0; i < LOADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    const int k = e / bn;
+    if (k < R && c + k < c1)
+      load_partial<VEC>(partial + static_cast<size_t>(c + k) * H +
+                            static_cast<size_t>(b0 + e % bn) * VEC,
+                        v[i]);
+  }
+}
+
+// acc += the N tile rows at s, s + stride, ..., in order: the N shared
+// reads are issued before the adds.
+template <int VEC, int N>
+__device__ __forceinline__ void add_tile_rows(const float* s, int stride,
+                                              float (&acc)[VEC]) {
+  float w[N][VEC];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if constexpr (VEC == 4) {
+      const float4 q = *reinterpret_cast<const float4*>(s + j * stride);
+      w[j][0] = q.x;
+      w[j][1] = q.y;
+      w[j][2] = q.z;
+      w[j][3] = q.w;
+    } else {
+      w[j][0] = s[j * stride];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] += w[j][k];
+}
+
+// One band of a heavy row (more than HEAVY_CHUNKS chunks), by a whole
+// block: out[rows[h], v] for the band's column vectors v in [b0, b0 + bn),
+// bn <= THREADS, = the sum of partial[c, v] over c in [chunk_ptr[h],
+// chunk_ptr[h + 1]), from 0.0f in chunk order. Each round the block loads
+// the next R chunks' band into registers (every thread LOADS vectors; R x
+// bn in all), while the band's owners (thread t owns vector b0 + t) add
+// the round before from the shared tile in chunk order.
+template <typename T, int VEC>
+__device__ void combine_heavy(int h, int b0, int bn,
+                              const int* __restrict__ rows,
+                              const int* __restrict__ chunk_ptr,
+                              const float* __restrict__ partial,
+                              T* __restrict__ out, int H, float* tile) {
+  constexpr int TILE_V = COMBINE_TILE / VEC;  // vectors the tile holds
+  constexpr int LOADS = TILE_V / THREADS;     // a thread's loads a round
+  const int c0 = chunk_ptr[h];
+  const int c1 = chunk_ptr[h + 1];
+  const int R = TILE_V / bn;                  // chunks a round
+  float v[LOADS][VEC];
+  load_round<VEC, LOADS>(partial, c0, c1, R, bn, b0, H, v);
+  float acc[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+  for (int c = c0; c < c1; c += R) {
+    __syncthreads();  // the owners are done with the tile
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int e = threadIdx.x + i * THREADS;
+      if (e / bn < R && c + e / bn < c1) {
+        if constexpr (VEC == 4)
+          *reinterpret_cast<float4*>(tile + e * 4) =
+              make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+        else
+          tile[e] = v[i][0];
+      }
+    }
+    __syncthreads();
+    if (c + R < c1)  // in flight while the owners add
+      load_round<VEC, LOADS>(partial, c + R, c1, R, bn, b0, H, v);
+    if (threadIdx.x < bn) {
+      const int n = min(R, c1 - c);
+      const float* s = tile + threadIdx.x * VEC;
+      int k = 0;
+      for (; k + ADD_BATCH <= n; k += ADD_BATCH)  // ADD_BATCH reads ahead
+        add_tile_rows<VEC, ADD_BATCH>(s + k * bn * VEC, bn * VEC, acc);
+      for (; k < n; ++k) add_tile_rows<VEC, 1>(s + k * bn * VEC, 0, acc);
+    }
+  }
+  if (threadIdx.x < bn)
+    Vec<T, VEC>::store(out + static_cast<size_t>(rows[h]) * H +
+                           static_cast<size_t>(b0 + threadIdx.x) * VEC,
+                       acc);
+}
+
 // out[rows[h], :] = the sum of partial[c, :] over row h's chunks
-// [chunk_ptr[h], chunk_ptr[h + 1]), in chunk order; one block per row.
-template <typename T>
+// [chunk_ptr[h], chunk_ptr[h + 1]), from 0.0f in chunk order, for h <
+// n_rows. A heavy row's columns are cut into bands of HEAVY_BAND vectors,
+// and the first heavy_blocks blocks sum them (combine_heavy): block j
+// takes band b of the heavy rows among h = j - b spread, j - b spread +
+// heavy_blocks, ... (mod heavy_blocks), so the bands of one row land on
+// blocks `spread` apart. The other blocks give each row G lanes, one
+// VEC-wide column vector per lane per pass, and skip the heavy rows; each
+// lane loads COMBINE_DEPTH chunks' vectors, then adds them in chunk order.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
     csr_combine_kernel(const int* __restrict__ rows,
                        const int* __restrict__ chunk_ptr,
                        const float* __restrict__ partial, T* __restrict__ out,
-                       int H) {
-  const int h = blockIdx.x;
+                       int n_rows, int H, int G, int heavy_blocks) {
+  __shared__ __align__(16) float tile[COMBINE_TILE];
+  if (static_cast<int>(blockIdx.x) < heavy_blocks) {
+    __shared__ int found[THREADS];
+    __shared__ int n_found;
+    const int nv = H / VEC;
+    const int n_bands = (nv + HEAVY_BAND - 1) / HEAVY_BAND;
+    const int spread = max(1, heavy_blocks / n_bands);
+    const long long stride = static_cast<long long>(heavy_blocks) * THREADS;
+    for (int band = 0; band < n_bands; ++band) {
+      const int b0 = band * HEAVY_BAND;
+      const int bn = min(nv - b0, HEAVY_BAND);
+      const long long first =
+          ((static_cast<long long>(blockIdx.x) -
+            static_cast<long long>(band) * spread) % heavy_blocks +
+           heavy_blocks) % heavy_blocks;
+      for (long long base = first; base < n_rows; base += stride) {
+        const long long h =
+            base + static_cast<long long>(heavy_blocks) * threadIdx.x;
+        if (threadIdx.x == 0) n_found = 0;
+        __syncthreads();
+        if (h < n_rows && chunk_ptr[h + 1] - chunk_ptr[h] > HEAVY_CHUNKS)
+          found[atomicAdd(&n_found, 1)] = static_cast<int>(h);
+        __syncthreads();
+        const int n = n_found;
+        for (int q = 0; q < n; ++q)
+          combine_heavy<T, VEC>(found[q], b0, bn, rows, chunk_ptr, partial,
+                                out, H, tile);
+        __syncthreads();  // every thread has read n_found and found
+      }
+    }
+    return;
+  }
+  const long long h =
+      (static_cast<long long>(blockIdx.x - heavy_blocks) * THREADS +
+       threadIdx.x) / G;
+  const int lane = threadIdx.x % G;
+  if (h >= n_rows) return;
   const int c0 = chunk_ptr[h];
   const int c1 = chunk_ptr[h + 1];
+  if (c1 - c0 > HEAVY_CHUNKS) return;  // a heavy block's
   T* o = out + static_cast<size_t>(rows[h]) * H;
-  for (int j = threadIdx.x; j < H; j += THREADS) {
-    float acc[1] = {0.f};
-    for (int c = c0; c < c1; ++c)
-      acc[0] += partial[static_cast<size_t>(c) * H + j];
-    Vec<T, 1>::store(o + j, acc);
+  const int nv = H / VEC;  // vectors per row
+
+  for (int vi = lane; vi < nv; vi += G) {  // passes over H
+    const float* p =
+        partial + static_cast<size_t>(c0) * H + static_cast<size_t>(vi) * VEC;
+    float acc[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+    for (int c = c0; c < c1; c += COMBINE_DEPTH) {
+      float v[COMBINE_DEPTH][VEC];
+#pragma unroll
+      for (int j = 0; j < COMBINE_DEPTH; ++j)
+        if (c + j < c1)
+          load_partial<VEC>(p + static_cast<size_t>(j) * H, v[j]);
+#pragma unroll
+      for (int j = 0; j < COMBINE_DEPTH; ++j)
+        if (c + j < c1) {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) acc[k] += v[j][k];
+        }
+      p += static_cast<size_t>(COMBINE_DEPTH) * H;
+    }
+    Vec<T, VEC>::store(o + static_cast<size_t>(vi) * VEC, acc);
   }
+}
+
+template <typename T, int VEC>
+int launch_combine_vec(const int* rows, const int* chunk_ptr,
+                       const float* partial, void* out, int n_rows, int H,
+                       int heavy_blocks, cudaStream_t stream) {
+  const int nv = H / VEC;
+  int G = 1;  // lanes per light row: the fewest that cover H, a vector each
+  while (G < THREADS && G < nv) G *= 2;
+  const long long blocks =
+      heavy_blocks + (static_cast<long long>(n_rows) * G + THREADS - 1) /
+                         THREADS;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  csr_combine_kernel<T, VEC><<<static_cast<unsigned>(blocks), THREADS, 0,
+                               stream>>>(rows, chunk_ptr, partial,
+                                         static_cast<T*>(out), n_rows, H, G,
+                                         heavy_blocks);
+  return 0;
+}
+
+template <typename T>
+int launch_combine(const int* rows, const int* chunk_ptr,
+                   const float* partial, void* out, int n_rows, int H,
+                   cudaStream_t stream) {
+  // one heavy block per SM, or per row where there are fewer rows
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int heavy_blocks = n_rows < sms ? n_rows : sms;
+  const bool aligned = reinterpret_cast<uintptr_t>(partial) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % (4 * sizeof(T)) == 0;
+  if (H % 4 == 0 && aligned)
+    return launch_combine_vec<T, 4>(rows, chunk_ptr, partial, out, n_rows, H,
+                                    heavy_blocks, stream);
+  return launch_combine_vec<T, 1>(rows, chunk_ptr, partial, out, n_rows, H,
+                                  heavy_blocks, stream);
 }
 
 template <typename T, int VEC>
@@ -469,14 +728,16 @@ extern "C" int gmeta_csr_combine(const int* rows, const int* chunk_ptr,
                                  int H, int dtype, void* stream) {
   if (n_rows > 0 && H > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int err;
     if (dtype == 0)
-      csr_combine_kernel<float><<<n_rows, THREADS, 0, st>>>(
-          rows, chunk_ptr, partial, static_cast<float*>(out), H);
+      err = launch_combine<float>(rows, chunk_ptr, partial, out, n_rows, H,
+                                  st);
     else if (dtype == 1)
-      csr_combine_kernel<__nv_bfloat16><<<n_rows, THREADS, 0, st>>>(
-          rows, chunk_ptr, partial, static_cast<__nv_bfloat16*>(out), H);
+      err = launch_combine<__nv_bfloat16>(rows, chunk_ptr, partial, out,
+                                          n_rows, H, st);
     else
-      return static_cast<int>(cudaErrorInvalidValue);
+      err = static_cast<int>(cudaErrorInvalidValue);
+    if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }

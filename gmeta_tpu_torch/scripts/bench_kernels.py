@@ -39,6 +39,14 @@ The dense precompute is also timed in the form that scattered every pad
 edge into one cell (`densify_serial`, `dense_*_pre_serial`), and held
 bitwise against `densify`.
 
+`main_path_bf16` then times the packed kernel at each bucket as a bf16 run
+of the preset launches it (every layer at H = hidden but a layer 1 that
+aggregates first, which runs float32 at H = feat): both directions,
+single launches and back to back, beside its bound at bf16's 2 bytes,
+torch.sparse.mm on the same CSR in bf16 (or torch's refusal), torch.bmm
+on a prebuilt bf16 A, and the launches a meta-step makes there
+(`launches_per_meta_step`).
+
 `--global-b-ab` only times the dense arxiv query aggregation at the
 record's B against the mean per-task need (25 bins), and merges that
 into the existing output.
@@ -138,21 +146,53 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
             and torch.equal(a.view(as_int[a.dtype]), b.view(as_int[b.dtype])))
 
 
-def calls_per_meta_step(update_step: int, track_curve: bool = True) -> dict:
-    """The aggregation work of one GraphConv layer in one first-order
-    meta-step (meta/maml.py `make_inner_loop`), for a layer whose input
-    takes a gradient (every layer but a layer 1 that aggregates first,
-    which makes only the forwards): one precompute per set, and the
-    forward and transposed calls of both sets together. With the curve
-    (the Trainer's default) the support set runs a forward at step 0 and
-    at each of the K steps, a transpose for each inner gradient and one
-    for the meta-gradient; the query set a forward at step 0 and after
-    each step, and the meta-gradient's transpose. Without it (the bench)
-    the step-0 forwards go and the query set runs one forward."""
+def calls_per_set(update_step: int, track_curve: bool = True) -> dict:
+    """The aggregation calls of one GraphConv layer in one first-order
+    meta-step (meta/maml.py `make_inner_loop`), per set: {"spt": {"fwd",
+    "T"}, "qry": {...}}, for a layer whose input takes a gradient (a layer
+    1 that aggregates first makes only the forwards). With the curve (the
+    Trainer's default) the support set runs a forward at step 0 and at
+    each of the K steps, a transpose for each inner gradient and one for
+    the meta-gradient; the query set a forward at step 0 and after each
+    step, and the meta-gradient's transpose. Without it (the bench) the
+    support set's step-0 forward goes and the query set runs one
+    forward."""
     K = update_step
-    if track_curve:
-        return {"pre": 2, "fwd": 2 * K + 2, "T": K + 2}
-    return {"pre": 2, "fwd": K + 1, "T": K + 2}
+    return {"spt": {"fwd": K + int(track_curve), "T": K + 1},
+            "qry": {"fwd": K + 1 if track_curve else 1, "T": 1}}
+
+
+def calls_per_meta_step(update_step: int, track_curve: bool = True) -> dict:
+    """One layer's aggregation work in one meta-step, both sets together:
+    one precompute per set, and the forward and transposed calls of
+    `calls_per_set`."""
+    sets = calls_per_set(update_step, track_curve).values()
+    return {"pre": 2, **{k: sum(s[k] for s in sets) for k in ("fwd", "T")}}
+
+
+def launches_per_meta_step(update_step: int, feat: int, hidden: int,
+                           gcn_layers: int = 2,
+                           track_curve: bool = True) -> dict:
+    """The packed kernel's launches in one first-order meta-step of a bf16
+    run, per set ("spt", "qry"): {"<dtype> <H>": {"fwd": n, "T": n}}: each
+    GraphConv layer makes its set's `calls_per_set`, the transposes only
+    where its input takes a gradient. Layer 1 aggregates first where feat
+    <= hidden (models/gcn.py): its input, the gathered features, is
+    float32 in every run (`gather_features`) and takes no gradient, so it
+    makes float32 forwards at H = feat; where feat > hidden it projects
+    first and aggregates at H = hidden in bf16, both ways, as every later
+    layer does."""
+    layers = [("float32", feat, False) if feat <= hidden
+              else ("bfloat16", hidden, True)]
+    layers += [("bfloat16", hidden, True)] * (gcn_layers - 1)
+    out = {}
+    for s, calls in calls_per_set(update_step, track_curve).items():
+        by = out[s] = {}
+        for dtype, H, grad in layers:
+            n = by.setdefault(f"{dtype} {H}", {"fwd": 0, "T": 0})
+            n["fwd"] += calls["fwd"]
+            n["T"] += calls["T"] if grad else 0
+    return out
 
 
 def load_shapes(parity_dir=None) -> dict:
@@ -338,6 +378,94 @@ def bench_bucket(P, B, E, H, fill, tasks, rng, device, timer) -> dict:
             sum(row[f"sized_{tag}_{k}"] for k in ("pre", "fwd", "T"))
             / sum(row[f"dense_{tag}_{k}"] for k in ("pre", "fwd", "T")))
     return row
+
+
+def main_path_bf16(shapes, tasks_of, rng, device, timer) -> dict:
+    """The packed kernel at each record bucket as a bf16 run launches it,
+    H = the preset's hidden width, both directions: single launches and
+    back to back, its bound (`gather_bound` at itemsize 2), torch.sparse.mm
+    on the same CSR in bf16 (its time and max abs error against the plain
+    gather, or torch's refusal in `sparse_*_refused`), torch.bmm on a
+    prebuilt bf16 A (A^T for the transpose), and the launches per
+    meta-step at the preset's update_step (`launches_per_meta_step`). The
+    kernel and torch.bmm are held against `sized_plain` at bf16's
+    tolerance."""
+    bf16, rows = torch.bfloat16, {}
+    for recipe, cfg in shapes.items():
+        feat, hid = FEAT_HID[recipe]
+        tasks = tasks_of(recipe)
+        launches = launches_per_meta_step(PRESETS[recipe].update_step, feat,
+                                          hid, PRESETS[recipe].h)
+        for which in ("spt", "qry"):
+            P, B, E = cfg[which]
+            S = tasks * B
+            _, h, _, src, dst, mask = synth_bucket(P, S, tasks * E, hid,
+                                                   cfg["fill"], rng,
+                                                   with_A=False)
+            e = [torch.from_numpy(a).to(device) for a in (src, dst, mask)]
+            x = torch.from_numpy(h).to(device, bf16)
+            xf = x.view(S * P, hid)
+            graph = sp.sized_graph(*e, S, P)
+            A = densify(*e, S, P, dtype=bf16)
+            row = dict(P=P, B=B, E=E, H=hid, tasks=tasks, S=S,
+                       launches_per_meta_step=launches[which])
+            for d, key, At in (("fwd", "fwd", A), ("bwd", "T", A.mT)):
+                row_ptr, col = graph.csr(d)
+                nnz = int(row_ptr[-1])
+                want = sp.sized_plain(row_ptr, col, x)
+                _err(sp.launch(d, graph, x), want, bf16, f"{recipe} {d}")
+                timer.both(row, f"sized_{key}",
+                           lambda d=d: sp.launch(d, graph, x))
+                read = int(torch.unique(col[:nnz]).numel())
+                row[f"bound_{key}"], row[f"bound_by_{key}"], _ = \
+                    cardtime.gather_bound(nnz, hid, read, S * P, 2)
+                _err(torch.bmm(At, x), want, bf16, f"{recipe} bmm {d}")
+                timer.both(row, f"bmm_{key}", lambda At=At: torch.bmm(At, x))
+                sparse = torch.sparse_csr_tensor(
+                    row_ptr, col[:nnz], torch.ones(nnz, dtype=bf16,
+                                                   device=device),
+                    size=(S * P, S * P), check_invariants=False)
+                try:
+                    got = torch.sparse.mm(sparse, xf)
+                except RuntimeError as err:      # a yardstick torch refuses
+                    row[f"sparse_{key}"] = row[f"sparse_{key}_b2b"] = None
+                    row[f"sparse_{key}_refused"] = str(err).splitlines()[0]
+                else:
+                    row[f"sparse_{key}_err"] = (
+                        got.float() - want.view(S * P, hid).float()
+                    ).abs().max().item()
+                    timer.both(row, f"sparse_{key}",
+                               lambda s=sparse: torch.sparse.mm(s, xf))
+                del sparse, want
+            rows[f"{recipe}.{which}"] = row
+            print(f"# main path bf16 {recipe}.{which}: H={hid} S={S} "
+                  f"kernel fwd {fmt(row['sized_fwd'], 4)} T "
+                  f"{fmt(row['sized_T'], 4)} ms", file=sys.stderr,
+                  flush=True)
+            del A, graph, x, xf, e
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    return rows
+
+
+def main_path_table(rows) -> list:
+    lines = ["| bucket | S | H | dir | kernel ms | b2b | bound | share "
+             "(b2b) | launches / meta-step | sparse.mm bf16 | bmm bf16 |",
+             "|---" * 11 + "|"]
+    for key, r in rows.items():
+        n = r["launches_per_meta_step"].get(f"bfloat16 {r['H']}", {})
+        for d in ("fwd", "T"):
+            ms, b2b, bound = r[f"sized_{d}"], r[f"sized_{d}_b2b"], \
+                r[f"bound_{d}"]
+            share = f"{100 * bound / ms:.0f}%" + (
+                f" ({100 * bound / b2b:.0f}%)" if b2b else "")
+            sparse = r[f"sparse_{d}"]
+            lines.append(
+                f"| {key} | {r['S']} | {r['H']} | {d} | {fmt(ms, 4)} | "
+                f"{fmt(b2b, 4)} | {fmt(bound, 4)} | {share} | "
+                f"{n.get(d, 0)} | {fmt(sparse, 4) if sparse else 'refused'}"
+                f" | {fmt(r[f'bmm_{d}'], 4)} |")
+    return lines
 
 
 def global_b_ab(shapes, tasks, rng, device, timer) -> dict:
@@ -591,11 +719,15 @@ def main(argv=None):
                 fill=cfg["fill"], source=cfg["source"],
                 **bench_bucket(P, B, E, H, cfg["fill"], tasks, rng, device,
                                timer))
+    results["main_path_bf16"] = main_path_bf16(
+        {r: shapes[r] for r in args.recipes},
+        lambda r: args.tasks or PRESETS[r].task_num, rng, device, timer)
     results["launches"] = {d: sp.launches[d] - before[d] for d in before}
     if device.type == "cuda" and not all(results["launches"].values()):
         raise RuntimeError(f"the sized kernel did not launch both ways: "
                            f"{results['launches']}")
-    return finish(results, args.out, table(results))
+    return finish(results, args.out, table(results)
+                  + main_path_table(results["main_path_bf16"]))
 
 
 if __name__ == "__main__":

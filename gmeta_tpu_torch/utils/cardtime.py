@@ -168,6 +168,21 @@ def gather_bound(nnz, H, read_rows, n_out, itemsize=4):
             "operations" if t_ops >= t_bytes else "bytes", nbytes)
 
 
+def combine_bound(n_chunks, n_rows, H, itemsize=4):
+    """The least time the card could take for the combine of `n_rows`
+    split rows from `n_chunks` float32 partial sums of H columns, in ms,
+    and what bounds it: the partials read once, the rows written once in
+    elements of `itemsize` bytes and the int32 row ids and chunk pointers
+    read once, or one add per partial element at the float32 rate,
+    whichever is longer; with the bytes."""
+    nbytes = (4.0 * n_chunks * H + itemsize * n_rows * H
+              + 4.0 * (2 * n_rows + 1))
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = float(n_chunks) * H / FP32_PEAK
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", nbytes)
+
+
 def dense_bound(S, P, H, dtype):
     """The least time for S products (P, P) @ (P, H), in ms, and what
     bounds it: 2 S P^2 H operations at the dtype's peak (float32 outside

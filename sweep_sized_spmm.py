@@ -3,6 +3,7 @@
 GPU.
 
     python3 sweep_sized_spmm.py [packed|full]     (both when no argument)
+    python3 sweep_sized_spmm.py combine [PARENT]
 
 packed: the packed sets' body (csr_gather_kernel). Each variant is
 gmeta_tpu_torch/csrc/sized_spmm.cu with some of its constants replaced
@@ -27,6 +28,23 @@ T = the committed `CHUNK`. Each is checked against `csr_plain`, then timed
 as the median of 30 launches beside the bytes bound of chip_smoke.py
 `gather_bound`.
 
+combine: the combine kernel alone (`csr_combine_kernel`, through its C
+entry gmeta_csr_combine) on the split rows of two power-law CSRs:
+chip_smoke.py phase 10's (`powerlaw_edges` at V 170,112 and nnz
+4,759,966: 3,782 split rows, 17,910 chunks) at H = 128 and 256, and that
+of `gmeta_tpu_torch/scripts/bench_edges.py 23` (V 2^23, 7 edges a node:
+31,117 split rows) at H = 128, each into float32 and bf16 rows, from
+normal float32 partial sums. Variants (COMBINE_VARIANTS: the heavy-row
+threshold and bands, the heavy rows' tile), and where PARENT names
+another checkout, its sized_spmm.cu's combine first and last ("parent",
+"parent, again"), so parent and change run in turns in one process.
+Each is held bitwise against `combine_plain` on the CPU (chunk order),
+then timed: the median of single launches and of 20 launches back to
+back (`cardtime.cuda_ms`, `cuda_ms_b2b`, both with the host's launch
+time in them), and the kernel's own device time per launch from
+torch.profiler, beside one `index_add_` of the partials per row and
+`cardtime.combine_bound`. JSON to build/sweep_sized_spmm/combine.json.
+
 Prints one line per variant, then the card's name and power limit.
 Imports nothing of JAX.
 """
@@ -34,6 +52,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import ctypes
+import json
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -82,10 +101,29 @@ SLAB_VARIANTS = {
 }
 
 
-def build(index, subs, prefix="v"):
-    """The variant's library and its ptxas register counts."""
+# variants of the combine kernel (csr_combine_kernel)
+BAND = "constexpr int HEAVY_BAND = 8;"
+HEAVY = "constexpr int HEAVY_CHUNKS = 128;"
+COMBINE_VARIANTS = {
+    "committed": [],
+    "no heavy rows (lanes only)": [(HEAVY,
+                                    "constexpr int HEAVY_CHUNKS = 1 << 30;")],
+    "heavy rows whole (bands of 256)": [(BAND,
+                                         "constexpr int HEAVY_BAND = 256;")],
+    "heavy bands of 4 vectors": [(BAND, "constexpr int HEAVY_BAND = 4;")],
+    "heavy bands of 16 vectors": [(BAND, "constexpr int HEAVY_BAND = 16;")],
+    "heavy above 64 chunks": [(HEAVY, "constexpr int HEAVY_CHUNKS = 64;")],
+    "16 KB tile": [("constexpr int COMBINE_TILE = 8192;",
+                    "constexpr int COMBINE_TILE = 4096;")],
+    "committed, again": [],
+}
+
+
+def build(index, subs, prefix="v", source=None):
+    """The variant's library and its ptxas register counts: `source`
+    (default this checkout's csrc/sized_spmm.cu) with `subs` applied."""
     from gmeta_tpu_torch.ops import cuda_build
-    text = (cuda_build.CSRC / "sized_spmm.cu").read_text()
+    text = Path(source or cuda_build.CSRC / "sized_spmm.cu").read_text()
     for old, new in subs:
         if old not in text:
             raise RuntimeError(f"variant {index}: {old!r} not in the source")
@@ -260,6 +298,124 @@ def sweep_full():
                 del x, want
 
 
+def combine_cases(device):
+    """(name, RowSplit on the card, H) of the combine sweep."""
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    from gmeta_tpu_torch.scripts.bench_edges import powerlaw_graph
+    import numpy as np
+    import torch
+
+    def split_of(dst, V):
+        row_ptr = np.zeros(V + 1, np.int64)
+        np.cumsum(np.bincount(dst, minlength=V), out=row_ptr[1:])
+        return sp.row_split(torch.from_numpy(row_ptr.astype(np.int32))
+                            .to(device))
+    _, dst = powerlaw_edges(170_112, 4_759_966)
+    smoke = split_of(dst, 170_112)
+    V = 1 << 23
+    edges23 = split_of(powerlaw_graph(V, 7)[1], V)
+    return [("chip_smoke power-law", smoke, 128),
+            ("chip_smoke power-law", smoke, 256),
+            ("bench_edges 23", edges23, 128)]
+
+
+def kernel_device_ms(fn, name, calls=20):
+    """Device milliseconds per call of fn() spent in kernels whose name
+    holds `name`, from torch.profiler's records of `calls` calls (no host
+    time in it, unlike the CUDA-event times)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages() if name in e.key)
+    return us / calls / 1e3
+
+
+def sweep_combine(parent):
+    import torch
+    from gmeta_tpu_torch.ops import sized_spmm as sp
+    from gmeta_tpu_torch.utils.cardtime import (combine_bound, cuda_ms,
+                                                cuda_ms_b2b)
+    device = torch.device("cuda", 0)
+    # (name, substitutions, source): the parent's combine first and last
+    variants = [(k, v, None) for k, v in COMBINE_VARIANTS.items()]
+    if parent:
+        cu = Path(parent) / "gmeta_tpu_torch/csrc/sized_spmm.cu"
+        variants = [("parent", [], cu), *variants, ("parent, again", [], cu)]
+    with ThreadPoolExecutor(len(variants)) as pool:   # nvcc at once
+        built = list(pool.map(lambda iv: build(iv[0], iv[1][1], "c",
+                                               iv[1][2]),
+                              enumerate(variants)))
+    combines = {}
+    for (name, _, _), (_, regs, lib) in zip(variants, built):
+        fn = lib.gmeta_csr_combine
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        combines[name] = fn
+        print(f"{name}: registers {'/'.join(regs)}", flush=True)
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    results = []
+    g = torch.Generator(device=device).manual_seed(0)
+    for case, split, H in combine_cases(device):
+        n_rows, n_chunks = split.rows.numel(), split.chunk_row.numel()
+        per = (split.chunk_ptr[1:] - split.chunk_ptr[:-1]).long()
+        owner = torch.repeat_interleave(torch.arange(n_rows, device=device),
+                                        per)
+        n_out = int(split.rows.max()) + 1
+        partial = torch.randn(n_chunks, H, device=device, generator=g)
+        split_cpu, partial_cpu = split.to("cpu"), partial.cpu()
+        for dtype in (torch.float32, torch.bfloat16):
+            sentinel = torch.full((n_out, H), 7.0, dtype=dtype, device=device)
+            want = sp.combine_plain(split_cpu, partial_cpu, sentinel.cpu())
+            out = sentinel.clone()
+            bound, by, _ = combine_bound(n_chunks, n_rows, H,
+                                         out.element_size())
+            row = dict(case=case, H=H, dtype=str(dtype)[6:], rows=n_rows,
+                       chunks=n_chunks, longest_row_chunks=int(per.max()),
+                       bound_ms=bound, bound_by=by, variants={})
+
+            def library():
+                torch.zeros((n_rows, H), device=device).index_add_(
+                    0, owner, partial)
+            row["index_add_ms"] = cuda_ms(library)
+            row["index_add_ms_b2b"] = cuda_ms_b2b(library)
+            cells = []
+            for name, fn in combines.items():
+                def run():
+                    err = fn(split.rows.data_ptr(),
+                             split.chunk_ptr.data_ptr(), partial.data_ptr(),
+                             out.data_ptr(), n_rows, H, codes[dtype],
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"{name}: CUDA error {err}")
+                out.copy_(sentinel)
+                run()
+                assert torch.equal(out.cpu(), want), (case, H, dtype, name)
+                ms, b2b = cuda_ms(run, iters=30), cuda_ms_b2b(run)
+                dev = kernel_device_ms(run, "csr_combine_kernel")
+                row["variants"][name] = {"ms": ms, "ms_b2b": b2b,
+                                         "device_ms": dev}
+                cells.append(f"{name} {ms:.4f} / {b2b:.4f} / {dev:.4f} ms "
+                             f"({100 * bound / ms:.1f}% / "
+                             f"{100 * bound / b2b:.1f}% / "
+                             f"{100 * bound / dev:.1f}%)")
+            results.append(row)
+            print(f"{case} H={H} {row['dtype']} ({n_rows} rows, {n_chunks} "
+                  f"chunks, longest {row['longest_row_chunks']}; bound "
+                  f"{bound:.4f} ms, index_add_ {row['index_add_ms']:.4f} / "
+                  f"{row['index_add_ms_b2b']:.4f} ms), single / back to "
+                  f"back / device: " + "; ".join(cells), flush=True)
+            del sentinel, out, want
+        del partial, partial_cpu
+    return results
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -267,6 +423,14 @@ def main():
     from gmeta_tpu_torch.utils.device import resolve_device
     resolve_device(torch.device("cuda", 0))
     which = sys.argv[1:] or ["packed", "full"]
+    if which[0] == "combine":
+        out = {"card": card_line(),
+               "rows": sweep_combine(which[1] if len(which) > 1 else None)}
+        path = Path(__file__).resolve().parent / "build" / "sweep_sized_spmm"
+        path.mkdir(parents=True, exist_ok=True)
+        (path / "combine.json").write_text(json.dumps(out))
+        print(out["card"])
+        return
     if "packed" in which:
         sweep_packed()
     if "full" in which:

@@ -144,34 +144,80 @@ def test_csr_pair_carries_both_plans_through_to():
         assert moved.split.chunk_row.shape == pair.split.chunk_row.shape
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [1, 5, 6, 50])
 @pytest.mark.parametrize("chunk", [7, sp.CHUNK, 256])
-def test_split_partials_combined_match_segment_sum(chunk):
+def test_split_partials_combined_match_segment_sum(chunk, H, dtype):
     """The split schedule on the host: each chunk's float32 partial sum
     over its edges, then `csr_combine` (its plain version on the CPU)
-    writes the split rows; every other row as `csr_plain` sums it. The
-    result equals jax.ops.segment_sum of the same edges."""
+    writes the split rows of a float32 or bf16 out; every other row as
+    `csr_plain` sums it. The result equals jax.ops.segment_sum of the same
+    edges (bf16: within the one rounding of each row)."""
     src, dst, n_src, n_dst = _hub_edges(1)
     pair = sp.csr_pair(src, dst, n_src, n_dst)
-    x = np.random.RandomState(2).randn(n_src, 6).astype(np.float32)
+    x = np.random.RandomState(2).randn(n_src, H).astype(np.float32)
     col, plan = pair.col.numpy(), sp.row_split(pair.row_ptr, chunk)
     rp = pair.row_ptr.numpy()
-    partial = np.stack([
+    partial = torch.from_numpy(np.stack([
         x[col[s:min(s + chunk, rp[r + 1])]].sum(0) for s, r in
-        zip(plan.chunk_start.numpy(), plan.chunk_row.numpy())])
-    out = sp.csr_plain(pair.row_ptr, pair.col, torch.from_numpy(x))
+        zip(plan.chunk_start.numpy(), plan.chunk_row.numpy())]))
+    out = sp.csr_plain(pair.row_ptr, pair.col, torch.from_numpy(x)).to(dtype)
     out[plan.rows.long()] = 0.0
     before = dict(sp.combine_launches)
-    got = sp.csr_combine(plan, torch.from_numpy(partial), out)
+    got = sp.csr_combine(plan, partial, out)
     assert got is out and sp.combine_launches == before
     want = jax.ops.segment_sum(jnp.asarray(x)[src], jnp.asarray(dst),
                                num_segments=n_dst)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
-                               atol=1e-4)
-    # and the plain combine in bf16 rounds each split row's sum once
-    out16 = torch.zeros(n_dst, 6, dtype=torch.bfloat16)
-    sp.combine_plain(plan, torch.from_numpy(partial), out16)
-    assert torch.equal(out16[plan.rows.long()],
-                       got[plan.rows.long()].to(torch.bfloat16))
+    want = np.asarray(want)
+    if (H, dtype) == (6, torch.float32):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+    # two float32 sums of a row's n terms in two orders part by at most
+    # 2 (n - 1) 2^-24 sum |x|; bf16 rounds the row once more (2^-9 of it)
+    n = np.bincount(dst, minlength=n_dst)[:, None]
+    size = np.asarray(jax.ops.segment_sum(jnp.abs(jnp.asarray(x)[src]),
+                                          jnp.asarray(dst),
+                                          num_segments=n_dst))
+    bound = 2 * np.maximum(n - 1, 0) * 2.0**-24 * size
+    if dtype == torch.bfloat16:
+        bound = bound + 2.0**-8 * np.abs(want)
+    assert (np.abs(got.float().numpy() - want) <= bound).all()
+    # each split row's float32 sum, rounded once to out's dtype
+    rows = plan.rows.long()
+    sums = sp.combine_plain(plan, partial, torch.zeros(n_dst, H))
+    assert torch.equal(got[rows], sums[rows].to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [1, 5, 50, 128, 256])
+def test_combine_plain_adds_in_chunk_order(H, dtype):
+    """`combine_plain`, the function the combine kernel must equal bit for
+    bit: each split row's partial sums added from 0.0 in chunk order in
+    float32 (normal partials of mixed scales, where another order gives
+    other bits), rounded once to out's dtype; every other row of out
+    left as it was. Rows of 1, 2, 3, 17 and 800 chunks."""
+    rng = np.random.RandomState(H)
+    per = np.array([2, 3, 17, 800, 1, 3])
+    rows = np.array([1, 4, 5, 9, 12, 13])
+    chunk_ptr = np.concatenate([[0], np.cumsum(per)])
+    chunk_row = np.repeat(rows, per)
+    plan = sp.RowSplit(*(torch.from_numpy(a.astype(np.int32)) for a in (
+        rows, chunk_ptr, chunk_row, np.zeros_like(chunk_row))), 128)
+    partial = (rng.randn(per.sum(), H)
+               * np.exp(3 * rng.randn(per.sum(), 1))).astype(np.float32)
+    out = torch.full((15, H), 7.0, dtype=dtype)
+    got = sp.combine_plain(plan, torch.from_numpy(partial), out.clone())
+    want = out.clone()
+    for i, r in enumerate(rows):
+        acc = np.zeros(H, np.float32)
+        for c in range(chunk_ptr[i], chunk_ptr[i + 1]):
+            acc = acc + partial[c]                 # float32, chunk order
+        want[r] = torch.from_numpy(acc).to(dtype)
+    assert torch.equal(got, want)
+    reordered = np.zeros(H, np.float32)            # the 800-chunk row
+    for c in reversed(range(chunk_ptr[3], chunk_ptr[4])):
+        reordered = reordered + partial[c]
+    assert not np.array_equal(reordered, got[9].float().numpy()) or \
+        dtype == torch.bfloat16
 
 
 def test_overlap_shard_pairs_carry_plans_of_their_rows():

@@ -606,6 +606,115 @@ def test_plan_is_built_when_missing_and_raises_on_a_plan_elsewhere(cuda):
     assert sized_spmm.l2_bytes(x.device.index or 0) >= 1 << 20
 
 
+# ---- the combine kernel alone -----------------------------------------------
+
+def _combine_case(per, H, device, seed, n_out=None):
+    """A row plan whose split rows own `per` chunks each (rows spread over
+    out), float32 partial sums of mixed scales (normal values times
+    e^(3 z) per chunk: another summation order gives other bits), and
+    n_out rows of out."""
+    rng = np.random.RandomState(seed)
+    per = np.asarray(per)
+    n_out = n_out or 3 * len(per) + 2
+    rows = np.sort(rng.choice(n_out, len(per), replace=False))
+    chunk_ptr = np.concatenate([[0], np.cumsum(per)])
+    chunk_row = np.repeat(rows, per)
+    split = sized_spmm.RowSplit(*(
+        torch.from_numpy(a.astype(np.int32)).to(device) for a in (
+            rows, chunk_ptr, chunk_row, np.zeros_like(chunk_row))), 128)
+    partial = (rng.randn(per.sum(), H)
+               * np.exp(3 * rng.randn(per.sum(), 1))).astype(np.float32)
+    return split, torch.from_numpy(partial).to(device), n_out
+
+
+def _combine_checked(split, partial, out):
+    """The kernel into a copy of out (a sentinel fill), held bitwise
+    against combine_plain on the CPU (chunk order, one rounding; rows not
+    split left as they were), one launch counted; returns its result."""
+    before = dict(sized_spmm.combine_launches)
+    got = sized_spmm.csr_combine(split, partial, out)
+    torch.cuda.synchronize()
+    assert sized_spmm.combine_launches["fwd"] == before["fwd"] + 1
+    want = sized_spmm.combine_plain(split.to("cpu"), partial.cpu(),
+                                    out.new_full(out.shape, 7.0).cpu())
+    assert torch.equal(got.cpu(), want)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [1, 5, 50, 128, 256])
+def test_combine_kernel_bitwise_equals_plain(cuda, H, dtype):
+    """Rows of 2, 3, 17 and 800 chunks (and 1, 16, 128 and 129: a light
+    row's round of loads, and either side of the heavy rows, which
+    blocks sum a band of columns each), at every preset width and both
+    dtypes: bitwise combine_plain's, the other rows untouched, and two
+    launches give the same bits."""
+    split, partial, n_out = _combine_case([2, 3, 17, 800, 1, 16, 128, 129],
+                                          H, cuda, seed=H)
+    out = torch.full((n_out, H), 7.0, dtype=dtype, device=cuda)
+    got = _combine_checked(split, partial, out.clone())
+    again = _combine_checked(split, partial, out.clone())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_kernel_on_misaligned_views(cuda, dtype):
+    """partial and out as views at an offset off their 16-byte boundary
+    (one element in): the kernel takes its scalar path there, with the
+    same bits as combine_plain and as the aligned launch."""
+    split, partial, n_out = _combine_case([2, 17, 800], 128, cuda, seed=3)
+    aligned = _combine_checked(
+        split, partial, torch.full((n_out, 128), 7.0, dtype=dtype,
+                                   device=cuda))
+    flat = torch.empty(partial.numel() + 1, device=cuda)
+    shifted = flat[1:].view(partial.shape)
+    shifted.copy_(partial)
+    flat_out = torch.full((n_out * 128 + 1,), 7.0, dtype=dtype, device=cuda)
+    out = flat_out[1:].view(n_out, 128)
+    assert shifted.data_ptr() % 16 and out.data_ptr() % 16
+    got = _combine_checked(split, shifted, out)
+    assert torch.equal(got, aligned)
+
+
+@pytest.mark.parametrize("per", [[1], [5], [800]])
+def test_combine_kernel_single_split_row(cuda, per):
+    """One split row (one block; 1, 5 or 800 chunks) in a table of 4,000
+    rows, float32 and bf16: every other row keeps its sentinel."""
+    for dtype in (torch.float32, torch.bfloat16):
+        split, partial, _ = _combine_case(per, 256, cuda, seed=per[0],
+                                          n_out=4000)
+        out = torch.full((4000, 256), 7.0, dtype=dtype, device=cuda)
+        got = _combine_checked(split, partial, out)
+        others = torch.ones(4000, dtype=torch.bool, device=cuda)
+        others[split.rows.long()] = False
+        assert (got[others] == 7.0).all()
+
+
+@pytest.mark.parametrize("H", [257, 1028])
+def test_combine_kernel_heavy_rows_in_column_bands(cuda, H):
+    """Widths past one block's lanes (257 scalars, 257 float4s): a heavy
+    row's bands, the last one narrower, and a light row's lanes pass
+    after pass; bitwise combine_plain's."""
+    split, partial, n_out = _combine_case([3, 200, 129, 128], H, cuda,
+                                          seed=H)
+    for dtype in (torch.float32, torch.bfloat16):
+        _combine_checked(split, partial, torch.full(
+            (n_out, H), 7.0, dtype=dtype, device=cuda))
+
+
+def test_combine_kernel_finds_heavy_rows_among_many(cuda):
+    """40,000 split rows, more than the heavy blocks look at in one pass
+    (a block per SM, 256 rows each): heavy rows at the start, the middle
+    and the end of the plan, and of 129 chunks, just past the
+    threshold."""
+    per = np.full(40_000, 2)
+    per[[0, 17, 20_000, 35_001, 39_999]] = [300, 129, 200, 800, 130]
+    split, partial, n_out = _combine_case(per, 8, cuda, seed=11,
+                                          n_out=80_000)
+    _combine_checked(split, partial, torch.full((n_out, 8), 7.0,
+                                                device=cuda))
+
+
 # ---- the collectives and the launch model on the card -----------------------
 
 def test_collectives_at_world_one_on_nccl_and_gloo(cuda, monkeypatch):

@@ -247,6 +247,17 @@ def test_bench_kernels_main_writes_its_json(records, tmp_path):
     assert row["segment_f32_fwd"] > 0 and row["ell_f32_fwd"] > 0
     assert row["bmm_bf16_fwd"] > 0 and row["dense_f32_fwd_b2b"] is None
     assert max(row["max_abs_err"].values()) < 0.05
+    # the buckets as a bf16 run launches them: H = hidden, both ways
+    main = res["main_path_bf16"]
+    assert list(main) == list(res["buckets"])
+    row = main["tree_of_life.spt"]
+    assert (row["S"], row["H"], row["P"]) == (4, 256, 32)
+    assert row["launches_per_meta_step"] == \
+        bench_kernels.launches_per_meta_step(10, 1, 256)["spt"]
+    for d in ("fwd", "T"):
+        assert row[f"sized_{d}"] > 0 and row[f"bmm_{d}"] > 0
+        assert row[f"bound_by_{d}"] in ("bytes", "operations")
+        assert (row[f"sparse_{d}"] or 0) > 0 or row[f"sparse_{d}_refused"]
     ab = bench_kernels.main(["--device", "cpu", "--iters", "1", "--tasks",
                              "1", "--parity_dir", str(records),
                              "--global-b-ab", "--out", str(out)])
@@ -293,6 +304,42 @@ def test_calls_per_meta_step_counts_the_code(K, track):
     assert widths.count(16) == calls["fwd"]
     assert widths.count(32) == calls["fwd"] + calls["T"]
     assert calls["pre"] == 2
+
+
+@pytest.mark.parametrize("feat, track", [(16, True), (48, True),
+                                         (16, False)])
+def test_launches_per_meta_step_counts_a_bf16_step(monkeypatch, feat, track):
+    """Every packed launch of one bf16 meta-step, recorded by set (its
+    rows), dtype, width and direction, against `launches_per_meta_step`:
+    layer 1 makes float32 forwards at feat where it aggregates first
+    (feat 16 < hidden 32) and bf16 launches both ways at hidden where it
+    projects first (feat 48); layer 2 bf16 both ways."""
+    K = 2
+    store, ds = synthetic_disjoint(
+        num_graphs=1, nodes_per_graph=300, avg_degree=6, feat_dim=feat,
+        num_classes=9, n_way=3, k_spt=3, k_qry=20, batchsz=4, h=2,
+        sample_nodes=64, seed=3)
+    spec = build_model_config(Config(hidden_dim=32), feat, 3)
+    ml = MetaLearner(spec, 3, update_lr=0.05, meta_lr=1e-3, update_step=K,
+                     update_step_test=1, seed=5, agg="sized", device="cpu",
+                     track_curve=track, compute_dtype=torch.bfloat16)
+    ml.set_features(store.features)
+    batch = next(ds["train"].batches(2, shuffle=False))
+    set_of = {int(np.prod(getattr(batch, s).node_gid.shape)): s
+              for s in ("spt", "qry")}
+    assert len(set_of) == 2               # the sets' rows tell them apart
+    seen = {"spt": {}, "qry": {}}
+    launch = sp.launch
+
+    def counted(direction, graph, x):
+        n = seen[set_of[x.shape[-3] * x.shape[-2]]].setdefault(
+            f"{str(x.dtype)[6:]} {x.shape[-1]}", {"fwd": 0, "T": 0})
+        n["fwd" if direction == "fwd" else "T"] += 1
+        return launch(direction, graph, x)
+    monkeypatch.setattr(sp, "launch", counted)
+    ml.train_step(batch)
+    assert seen == bench_kernels.launches_per_meta_step(K, feat, 32, 2,
+                                                        track)
 
 
 def test_crossing_interpolates_in_log_log():
