@@ -58,6 +58,7 @@ from gmeta_tpu_torch.models.gcn import GCN, forward, init_params, precompute
 from gmeta_tpu_torch.parallel.collectives import all_reduce_flat, broadcast_
 from gmeta_tpu_torch.parallel.dp import shard_batch
 from gmeta_tpu_torch.utils.device import resolve_device
+from gmeta_tpu_torch.utils.metrics import NO_SPAN, grad, span, within
 
 
 class InnerAux(NamedTuple):
@@ -112,8 +113,11 @@ def make_inner_loop(layer_spec: Sequence[Tuple[str, tuple]],
                                                for p in params)
         # Adjacency (or edge lists) + norm + the input-feature gather are
         # constant across inner steps: built ONCE here.
-        graph_spt = precompute(task.spt, compute_dtype, feats=feats, agg=agg)
-        graph_qry = precompute(task.qry, compute_dtype, feats=feats, agg=agg)
+        with span("graph"):
+            graph_spt = precompute(task.spt, compute_dtype, feats=feats,
+                                   agg=agg)
+            graph_qry = precompute(task.qry, compute_dtype, feats=feats,
+                                   agg=agg)
 
         def spt(w):
             logits = forward(w, task.spt, feats, layer_spec, graph=graph_spt,
@@ -135,7 +139,7 @@ def make_inner_loop(layer_spec: Sequence[Tuple[str, tuple]],
         if track_curve:
             # step-0 evaluation with theta and theta-derived prototypes,
             # under no_grad as in the reference (meta.py:129-134)
-            with torch.no_grad():
+            with span("curve"), torch.no_grad():
                 ql, qa = qry(w, spt(w)[1])
             q_losses.append(ql)
             q_accs.append(qa)
@@ -145,23 +149,24 @@ def make_inner_loop(layer_spec: Sequence[Tuple[str, tuple]],
             support losses, prototypes, query loss, query accuracy); the
             last two are None without track_curve."""
             w = list(w)
-            with torch.enable_grad():
-                loss_s, protos = spt(w)
-                g = torch.autograd.grad(
-                    loss_s.sum(), w,
-                    retain_graph=meta and (last or not first_order),
-                    create_graph=meta and not first_order)
-            if meta:
-                w = [p - update_lr * gi for p, gi in zip(w, g)]
-            else:
-                w = [(p - update_lr * gi).detach().requires_grad_()
-                     for p, gi in zip(w, g)]
+            with span("inner"):
+                with torch.enable_grad():
+                    loss_s, protos = spt(w)
+                    g = grad(loss_s.sum(), w,
+                             retain_graph=meta and (last or not first_order),
+                             create_graph=meta and not first_order)
+                if meta:
+                    w = [p - update_lr * gi for p, gi in zip(w, g)]
+                else:
+                    w = [(p - update_lr * gi).detach().requires_grad_()
+                         for p, gi in zip(w, g)]
             ql = qa = None
             if track_curve:
                 if meta and last:
-                    ql, qa = qry(w, protos)
+                    with span("outer"):     # the meta-loss's query forward
+                        ql, qa = qry(w, protos)
                 else:
-                    with torch.no_grad():
+                    with span("curve"), torch.no_grad():
                         ql, qa = qry(w, protos)
             return tuple(w), loss_s, protos, ql, qa
 
@@ -189,7 +194,8 @@ def make_inner_loop(layer_spec: Sequence[Tuple[str, tuple]],
 
         # one query forward total, with the final fast weights and the LAST
         # step's support prototypes (meta.py:143-151)
-        with torch.set_grad_enabled(meta):
+        with span("outer" if meta else "curve"), \
+                torch.set_grad_enabled(meta):
             meta_loss, q_acc = qry(w, protos)
         shape = (T, num_steps + 1)
         aux = InnerAux(qry_accs=q_acc.detach()[:, None].expand(shape),
@@ -346,22 +352,41 @@ class MetaLearner:
         """One meta-step on a batch of T tasks. Returns device tensors
         {"meta_loss", "accs" (update_step+1,), "nan_skip"} without waiting
         for the device (with a mesh, the collectives may wait)."""
-        T = batch.spt.node_gid.shape[0]
-        if self.mesh is not None:
-            batch = shard_batch(batch, self.mesh)
-        batch = batch_to(batch, self.device)
+        if within("step"):   # a K-step call's step, which decoded the batch
+            return self._train_step(batch)
+        with span("step"):
+            return self._train_step(batch, span("decode"))
+
+    def _train_step(self, batch: TaskBatch, decode=NO_SPAN):
+        """The meta-step: the batch's copy to the device (in the span
+        `decode`), the inner loop, then the meta-gradient and the
+        update."""
+        with decode:
+            T = batch.spt.node_gid.shape[0]
+            if self.mesh is not None:
+                batch = shard_batch(batch, self.mesh)
+            batch = batch_to(batch, self.device)
         params = self.params
         grads = [torch.zeros_like(p) for p in params]
         loss = torch.zeros((), device=self.device)
         accs = 0.0
-        for sl in self._chunks(batch.spt.node_gid.shape[0]):
+        chunks = self._chunks(batch.spt.node_gid.shape[0])
+        for i, sl in enumerate(chunks):
             losses, aux = self._train_inner(params, take_tasks(batch, sl),
                                             self._feats)
-            part = losses.sum() / T
-            for acc, g in zip(grads, torch.autograd.grad(part, params)):
-                acc.add_(g)
-            loss = loss + part.detach()
-            accs = accs + aux.qry_accs.sum(dim=0)
+            with span("outer"):
+                part = losses.sum() / T
+                for acc, g in zip(grads, grad(part, params)):
+                    acc.add_(g)
+                loss = loss + part.detach()
+                accs = accs + aux.qry_accs.sum(dim=0)
+                if i == len(chunks) - 1:
+                    m = self._update(params, grads, loss, accs, T)
+        return m
+
+    def _update(self, params, grads, loss, accs, T: int):
+        """The task-DP all-reduce, the NaN guard and Adam; the step's
+        metrics."""
         if self.mesh is not None:
             *grads, loss, accs = all_reduce_flat(
                 grads + [loss, accs], self.mesh.task_group)
@@ -380,11 +405,17 @@ class MetaLearner:
         return {"meta_loss": loss, "accs": accs / T,
                 "nan_skip": (~ok).to(torch.int32)}
 
-    def _train_steps(self, batches) -> dict:
-        """One meta-step per batch of the iterable, in order. Returns the
-        per-step metrics stacked along a leading axis (the JAX package's
-        scanned `ms`), without waiting for the device."""
-        ms = [self.train_step(b) for b in batches]
+    def _train_steps(self, make, items) -> dict:
+        """One meta-step per item of the iterable, in order, on the batch
+        `make(item)` (its `decode` span). Returns the per-step metrics
+        stacked along a leading axis (the JAX package's scanned `ms`),
+        without waiting for the device."""
+        ms = []
+        for item in items:
+            with span("step"):
+                with span("decode"):
+                    batch = make(item)
+                ms.append(self.train_step(batch))
         return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
     def _rows(self, idx) -> torch.Tensor:
@@ -406,8 +437,8 @@ class MetaLearner:
     def train_steps_from_pool(self, idx_mat):
         """idx_mat.shape[0] meta-steps over the resident pool, row k of
         idx_mat naming step k's tasks. Returns stacked per-step metrics."""
-        return self._train_steps(take_tasks(self._pool, rows)
-                                 for rows in self._rows(idx_mat))
+        return self._train_steps(functools.partial(take_tasks, self._pool),
+                                 self._rows(idx_mat))
 
     # -- window wire format --------------------------------------------------
     #
@@ -574,7 +605,7 @@ class MetaLearner:
                                     m_spt),
                 qry=self._build_set([l.index_select(0, rows) for l in qry],
                                     m_qry))
-        return self._train_steps(batch(rows) for rows in self._rows(idx_mat))
+        return self._train_steps(batch, self._rows(idx_mat))
 
     # -- host-windowed pool --------------------------------------------------
 
@@ -613,10 +644,12 @@ class MetaLearner:
         (put_buffer), decoded one step at a time."""
         _, _, m_spt, m_qry = self._codec
         spt, qry = self._window_leaves(buf_dev)
-        return self._train_steps(
-            TaskBatch(spt=self._build_set([l[k] for l in spt], m_spt),
-                      qry=self._build_set([l[k] for l in qry], m_qry))
-            for k in range(spt[0].shape[0]))
+
+        def batch(k):
+            return TaskBatch(
+                spt=self._build_set([l[k] for l in spt], m_spt),
+                qry=self._build_set([l[k] for l in qry], m_qry))
+        return self._train_steps(batch, range(spt[0].shape[0]))
 
     def finetune_batch(self, batch: TaskBatch, params=None) -> torch.Tensor:
         """(T, update_step_test+1) accuracy curves for a batch of tasks,

@@ -39,7 +39,9 @@ launches per direction, `csr_launches` the rectangular entry point's and
 `combine_launches` its combine kernel's, so a run can show which of its
 paths went through which kernel (`launches_by_dtype` splits the packed
 path's by the dtype of x). Within `spmm.count_aggregation`, every
-`launch` (kernel or plain version) also adds its call to the tally.
+`launch` (kernel or plain version) also adds its call to the tally, and
+while a profiler is active each runs in an `agg` span
+(utils/metrics.py).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from gmeta_tpu_torch.ops import cuda_build, spmm
+from gmeta_tpu_torch.utils.metrics import span
 
 # Kernel launches per direction; only a CUDA launch adds to them.
 launches = {"fwd": 0, "bwd": 0}        # packed sets (launch)
@@ -204,7 +207,13 @@ def launch(direction: str, graph: SizedGraph, x: torch.Tensor) -> torch.Tensor:
     """Run one direction ("fwd" or "bwd") of the graph on x (S, P, H), or
     on x (T, S, P, H) for T tasks that share it, on x's device: the plain
     version on the CPU, one kernel launch on CUDA (counted in
-    `launches`)."""
+    `launches`), inside an `agg` span."""
+    with span("agg"):
+        return _launch(direction, graph, x)
+
+
+def _launch(direction: str, graph: SizedGraph,
+            x: torch.Tensor) -> torch.Tensor:
     row_ptr, col = graph.csr(direction)
     _check_devices(row_ptr, col, x)
     _check(row_ptr, col, x)

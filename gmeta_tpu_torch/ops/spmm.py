@@ -21,7 +21,9 @@ The edge-partitioned engine (parallel/edgepart_train.py) aggregates with
 these.
 
 `count_aggregation` tallies the work of the packed aggregations, dense and
-sized, that run within it (bench.py's FLOP count).
+sized, that run within it (bench.py's FLOP count). While a profiler is
+active, each of those calls, forward or backward, runs in an `agg` span
+(utils/metrics.py).
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from gmeta_tpu_torch.utils.metrics import bracket, span
 
 
 @dataclasses.dataclass
@@ -115,11 +119,14 @@ def aggregate_dense(A: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """out[s, v] = sum_u A[s, v, u] * h[s, u] over full (P, P) blocks:
     a batched matmul, which the JAX package also leaves to its compiler.
     A: (S, P, P), h: (S, P, H). Accumulates in float32 and returns float32,
-    as the reference's preferred_element_type does."""
-    if A.dtype == torch.float32 and h.dtype == torch.float32:
-        out = torch.bmm(A, h)
-    else:
-        out = torch.bmm(A.float(), h.float())
+    as the reference's preferred_element_type does. Its backward's
+    product runs in an `agg` span too (hooks on its autograd node)."""
+    with span("agg"):
+        if A.dtype == torch.float32 and h.dtype == torch.float32:
+            out = torch.bmm(A, h)
+        else:
+            out = torch.bmm(A.float(), h.float())
+    bracket(out, "agg")
     if tally is not None:
         work, (S, P, H) = tally, h.shape
         nnz = A.sum(dtype=torch.float64)

@@ -261,7 +261,7 @@ class EdgePartTrainer:
                     self.metrics.echo_line(
                         f"Epoch: {epoch + 1}  Step: {step}  training acc: "
                         f"{acc:.3f}  tasks/s: {tasks_per_s:.2f}  Memory "
-                        f"usage: {rss_gb():.1f}")
+                        f"usage (process RSS, GiB): {rss_gb():.1f}")
                     self.metrics.log(
                         "train_step", epoch=epoch, step=self.global_step,
                         qry_acc=acc, meta_loss=float(m["meta_loss"]),

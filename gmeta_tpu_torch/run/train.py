@@ -66,7 +66,9 @@ from gmeta_tpu_torch.models.gcn import count_params
 from gmeta_tpu_torch.parallel import mesh as mesh_mod
 from gmeta_tpu_torch.utils import checkpoint as ckpt
 from gmeta_tpu_torch.utils.device import resolve_device
-from gmeta_tpu_torch.utils.metrics import MetricLogger, StepTimer, rss_gb
+from gmeta_tpu_torch.utils.metrics import (MetricLogger, StreamClock,
+                                           clear_spans, rss_gb, span_summary,
+                                           spans)
 
 @dataclasses.dataclass
 class FitResult:
@@ -254,30 +256,41 @@ class Trainer:
 
         # Depth-1 dispatch: packing batch N+1 overlaps the device executing
         # step N, but step N+1 is not dispatched until step N has completed,
-        # so the host never runs more than one step ahead.
+        # so the host never runs more than one step ahead. Per report
+        # window: data_s, the host's wait in the batch iterator; compute_s,
+        # each step's time from its dispatch to the end of its work, in
+        # stream order (StreamClock), read once the window's fetch synced.
+        clock = StreamClock(self.device)
         prev_done = None
+        data_t, marks = 0.0, []
         for epoch in range(self.start_epoch, cfg.epoch):
-            timer = StepTimer()
             skip = self.start_batch if epoch == self.start_epoch else 0
-            for step, batch in enumerate(train.batches(
-                    cfg.task_num, shuffle=True, seed=cfg.seed + epoch,
-                    num_workers=cfg.num_workers, skip_batches=skip),
-                    start=skip):
-                data_t = timer.split()
+            batches = enumerate(train.batches(
+                cfg.task_num, shuffle=True, seed=cfg.seed + epoch,
+                num_workers=cfg.num_workers, skip_batches=skip), start=skip)
+            while True:
+                t0 = time.perf_counter()
+                item = next(batches, None)
+                data_t += time.perf_counter() - t0
+                if item is None:
+                    break
+                step, batch = item
                 if prof is None and \
                         self.global_step == prof_stop - cfg.profile_steps:
                     prof = _start_trace(self.device)
                 if prev_done is not None:
-                    prev_done.synchronize()
+                    _wait(prev_done)
+                start = clock.mark()
                 m = self.learner.train_step(batch)
-                prev_done = _step_done(self.device)
+                prev_done = clock.mark()
+                marks.append((start, prev_done))
                 if prof is not None and self.global_step + 1 >= prof_stop:
                     self._stop_trace(prof)
                     prof = None
                 win_steps += 1
                 if step % cfg.train_result_report_steps == 0:
                     accs = m["accs"].cpu().numpy()  # sync point (host fetch)
-                    compute_t = timer.split()
+                    compute_t = sum(clock.seconds(a, b) for a, b in marks)
                     # window throughput: tasks (and their real edges) per
                     # wall-second since the previous report
                     dt = max(time.time() - win_t, 1e-9)
@@ -286,8 +299,8 @@ class Trainer:
                     self.metrics.echo_line(
                         f"Epoch: {epoch + 1}  Step: {step}  training acc: "
                         f"{accs[-1]:.3f}  time elapsed: {compute_t:.3f}  "
-                        f"data loading takes: {data_t:.3f}  Memory usage: "
-                        f"{rss_gb():.1f}")
+                        f"data loading takes: {data_t:.3f}  Memory usage "
+                        f"(process RSS, GiB): {rss_gb():.1f}")
                     self.metrics.log(
                         "train_step", epoch=epoch, step=self.global_step,
                         acc_curve=accs.tolist(),
@@ -296,6 +309,7 @@ class Trainer:
                         tasks_per_s=round(tasks_per_s, 2),
                         edges_per_s=round(tasks_per_s * mean_edges, 1),
                         data_s=data_t, compute_s=compute_t, rss_gb=rss_gb())
+                    data_t, marks = 0.0, []
                 self.global_step += 1
                 if (cfg.checkpoint_every_steps
                         and self.global_step % cfg.checkpoint_every_steps == 0):
@@ -307,11 +321,14 @@ class Trainer:
         return self._final_test(t_start)
 
     def _stop_trace(self, prof) -> None:
+        """Stop the profiler window, write its Chrome trace and a `spans`
+        record of the window's meta-step spans (utils/metrics.py)."""
         name = f"step{self.global_step:08d}"
         if self.mesh is not None:
             name += f"_rank{self.mesh.rank}"
         path = _stop_trace(prof, self.cfg.profile_dir, self.device, name)
         self.metrics.echo_line(f"profiler trace written to {path}")
+        self.metrics.log("spans", **span_summary(spans()))
 
     def _epoch_steps(self, epoch: int) -> np.ndarray:
         """(steps_per_epoch, task_num) task indices of an epoch: the order
@@ -431,7 +448,7 @@ class Trainer:
         are copied to the host in stream order right after its steps, and
         read after window N+1 is enqueued, so the host's gather, encode and
         copy of a window overlap the previous window's device work. Its
-        seconds are measured between stream-ordered marks (_StreamClock),
+        seconds are measured between stream-ordered marks (StreamClock),
         since the host clock runs up to a window ahead of the card."""
         cfg = self.cfg
         n_tasks = len(self.datasets["train"])
@@ -449,7 +466,7 @@ class Trainer:
                                       pin_memory=True), None))
         prof_window = 1 if cfg.profile_dir else -1
         windows_done = 0
-        clock = _StreamClock(self.device)
+        clock = StreamClock(self.device)
 
         steps_since_save = 0
         for epoch in range(self.start_epoch, cfg.epoch):
@@ -579,14 +596,10 @@ class Trainer:
         return result
 
 
-def _step_done(device: torch.device):
-    """An event that completes with the work queued so far, or None off
-    CUDA (where every op has finished when it returns)."""
-    if device.type != "cuda":
-        return None
-    ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(device))
-    return ev
+def _wait(mark) -> None:
+    """Wait for a StreamClock mark's work (a host mark has none left)."""
+    if not isinstance(mark, float):
+        mark.synchronize()
 
 
 def _host_copies(tree, device: torch.device):
@@ -621,33 +634,11 @@ def _host_copies(tree, device: torch.device):
     return out, landed
 
 
-class _StreamClock:
-    """Points in the compute stream's order and the seconds between them:
-    CUDA timing events on a CUDA device, where the host runs ahead of the
-    card and its clock would time the enqueueing; the host clock elsewhere,
-    where each op has finished when it returns."""
-
-    def __init__(self, device: torch.device):
-        self.device = device if device.type == "cuda" else None
-
-    def mark(self):
-        if self.device is None:
-            return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record(torch.cuda.current_stream(self.device))
-        return ev
-
-    @staticmethod
-    def seconds(a, b) -> float:
-        """Seconds from mark a to mark b; both must have completed."""
-        if isinstance(a, float):
-            return b - a
-        return a.elapsed_time(b) / 1e3
-
-
 def _start_trace(device: torch.device):
-    """Start torch.profiler: host activity, and the card's on CUDA."""
+    """Start torch.profiler: host activity, and the card's on CUDA; the
+    window's spans start afresh."""
     from torch.profiler import ProfilerActivity, profile
+    clear_spans()
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)

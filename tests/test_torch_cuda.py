@@ -779,3 +779,72 @@ def test_nccl_ranks_sharing_a_card_raise(cuda, monkeypatch):
     monkeypatch.setenv("LOCAL_RANK", str(n))
     with pytest.raises(RuntimeError, match="no card of its own"):
         rank_device(None, None)
+
+
+@pytest.mark.parametrize("agg", ["sized", "dense"])
+def test_spans_on_cuda_are_the_cpu_tree_and_leave_the_bits(cuda, agg):
+    """Under a profiler of the card's activity alone (as the benchmark's
+    traced window runs one), a compact call on CUDA records the same spans
+    under the same parents as on the CPU, though the backward runs on the
+    autograd engine's own thread there; each span's device time is read;
+    theta is the same bits as without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gmeta_tpu_torch.utils import metrics
+    store, ds = _tiny()
+    pool = ds["train"].stacked_pool()
+    idx_mat = np.random.RandomState(2).permutation(12)[:8].reshape(2, 4)
+
+    def run(device, activities):
+        ml = MetaLearner(build_model_config(Config(hidden_dim=16),
+                                            store.feat_dim, 3), 3,
+                         update_lr=0.05, meta_lr=1e-3, update_step=3,
+                         update_step_test=2, seed=5, agg=agg, remat=True,
+                         device=device)
+        ml.set_features(store.features)
+        ml.set_task_pool_compact(pool)
+        metrics.clear_spans()
+        if activities is None:
+            ml.train_steps_from_compact(idx_mat)
+            return ml.snapshot(), []
+        with profile(activities=activities):
+            ml.train_steps_from_compact(idx_mat)
+            torch.cuda.synchronize()
+        return ml.snapshot(), metrics.spans()
+
+    def tree(window):
+        return sorted((s.name, window[s.parent].name if s.parent >= 0
+                       else "") for s in window)
+    _, cpu = run("cpu", [ProfilerActivity.CPU])
+    theta, gpu = run(cuda, [ProfilerActivity.CUDA])
+    plain, _ = run(cuda, None)
+    assert gpu and tree(gpu) == tree(cpu)
+    for a, b in zip(theta, plain):
+        assert torch.equal(a, b)
+    steps = [i for i, s in enumerate(gpu) if s.name == "step"]
+    assert len(steps) == 2
+    for i in steps:
+        kids = sum(s.device_ms for s in gpu if s.parent == i)
+        assert 0 < kids <= gpu[i].device_ms * 1.001
+    assert all(s.device_ms > 0 for s in gpu if s.name == "agg")
+
+
+def test_stream_clock_marks_the_stream_current_at_each_mark(cuda):
+    """StreamClock keeps the current stream's Python object between marks,
+    and builds it again when another stream becomes current."""
+    from gmeta_tpu_torch.utils.metrics import StreamClock
+    clock = StreamClock(torch.device("cuda"))
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1000)           # load the kernel before timing
+    torch.cuda.synchronize()
+    a = clock.mark()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)     # tens of ms, on the side stream
+        b = clock.mark()
+    c = clock.mark()
+    torch.cuda.synchronize()
+    assert clock._stream[2] == torch.cuda.current_stream()
+    # b waited for the sleep on the side stream, c did not
+    assert StreamClock.seconds(a, b) > 0.01
+    assert 0 <= StreamClock.seconds(a, c) < 0.005

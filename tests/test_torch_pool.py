@@ -301,10 +301,29 @@ def test_profile_dir_writes_a_trace(tmp_path, mode):
                                 host_pool_window=1)}[mode]
     store, ds = synthetic_disjoint(**DATA)
     cfg = Config(**dict(CFG, epoch=1, train_result_report_steps=1),
-                 profile_dir=str(tmp_path / "trace"), **over)
+                 profile_dir=str(tmp_path / "trace"),
+                 metrics_path=str(tmp_path / "m.jsonl"), **over)
     Trainer(cfg, store, ds, labels_num=3, device="cpu").fit()
     traces = os.listdir(cfg.profile_dir)
     assert len(traces) == 1 and traces[0].endswith(".json"), traces
     with open(os.path.join(cfg.profile_dir, traces[0])) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+    # the spans show in the Chrome trace as ranges of the host's timeline
+    names = {e.get("name") for e in events if e.get("ph") == "X"}
+    assert {"step", "decode", "graph", "inner", "outer", "agg"} <= names
+    # the window's spans: one record, each name counted, device ms a step
+    spans = [r for r in _records(cfg.metrics_path) if r["kind"] == "spans"]
+    assert len(spans) == 1, spans
+    rec = spans[0]
+    # the host pool's window closes once the next window is dispatched
+    steps = {"streaming": 2, "compact": 1, "host_window": 2}[mode]
+    assert rec["steps"] == rec["count"]["step"] == steps
+    per_step = {"decode": 1, "graph": 1, "outer": 2,
+                "inner": CFG["update_step"], "curve": CFG["update_step"]}
+    for name, n in per_step.items():
+        assert rec["count"][name] == n * steps, (name, rec)
+    assert rec["count"]["agg"] > 0
+    assert set(rec["ms_per_step"]) == set(rec["count"])
+    assert all(v > 0 for v in rec["ms_per_step"].values())
+    assert rec["ms_per_step"]["step"] >= rec["ms_per_step"]["inner"]

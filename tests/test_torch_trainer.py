@@ -143,3 +143,30 @@ def test_cli_builds_datasets_like_jax_and_trains(tmp_path, capsys):
         assert res.global_step == 2
     with pytest.raises(ValueError, match="mesh_tasks 2"):
         train_mod.main(argv + ["--mesh_tasks=2", "--device=cpu"])
+
+
+def test_stream_timings_split_the_iterators_wait_from_the_steps(
+        tmp_path, monkeypatch):
+    """The streaming loop's records: data_s is the host's wait in the batch
+    iterator alone, compute_s each step's dispatch to the end of its work,
+    both summed over every step of the report window (here two steps, the
+    first report one)."""
+    import time
+    sleep = 1.5     # three times a loaded CPU's two tiny steps
+    store, ds = synthetic_disjoint(**dict(DATA, batchsz=12))
+    train = ds["train"]
+    batches = train.batches
+
+    def slow(*a, **k):
+        for b in batches(*a, **k):
+            time.sleep(sleep)
+            yield b
+    monkeypatch.setattr(train, "batches", slow)
+    cfg = Config(**dict(CFG, epoch=1, train_result_report_steps=2),
+                 metrics_path=str(tmp_path / "m.jsonl"))
+    Trainer(cfg, store, ds, labels_num=3, device="cpu").fit()
+    recs = [r for r in _records(cfg.metrics_path) if r["kind"] == "train_step"]
+    assert [r["step"] for r in recs] == [0, 2]
+    for r, n in zip(recs, (1, 2)):
+        assert r["data_s"] >= n * sleep, r
+        assert 0 < r["compute_s"] < sleep, r
