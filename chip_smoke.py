@@ -7,13 +7,16 @@ Phases; any failure raises and the script exits non-zero:
   1. device   — CUDA must be available; prints the card's name and power
                 limit (nvidia-smi).
   2. build    — compiles csrc/sized_spmm.cu (the packed body, the
-                full-graph body and the combine kernel) from this checkout
-                (nvcc, sm_90a).
+                full-graph body and the combine kernel) and
+                csrc/gcn_epilogue.cu from this checkout (nvcc, sm_90a).
   3. checks   — each kernel against its plain PyTorch version on the card,
                 on packed edge lists (duplicates, pad edges): P in
                 {512, 1024}, live sizes {0, 1, 127, 129, P},
                 H in {1, 5, 50, 128, 256}, float32 and bf16; the forward,
                 the backward through SizedAgg, and a double backward.
+                (b) both GraphConv epilogue kernels against their plain
+                versions, bit for bit, float32 and bf16, at ragged
+                shapes with kinks and a NaN.
   4. data     — the arxiv-scale synthetic graph (170k nodes, degree 28,
                 128 features, 15 classes, 1000-node subgraph cap) and its
                 episodes (192 train tasks, 48 val and 48 test), built with
@@ -29,13 +32,21 @@ Phases; any failure raises and the script exits non-zero:
                 for this data: reading the x rows the edges name and the
                 int32 indices once and writing the output once, or the
                 2 x nnz x H operations of the edges, whichever is longer.
+                (b) the epilogue kernels at arxiv's query and support
+                shapes (32 x 37 or 8 x 1024 x 256), float32 and bf16: bit
+                for bit their plain versions, and the wrapper the model
+                calls bit for bit autograd of the chain (out, g_x, g_b);
+                at the query shape their times beside their bound (the
+                function's bytes over 3.35 TB/s) and the chain's.
   6. cuda=cpu — at a small size, one train_step on cuda (kernels) equals
                 the same step on cpu (plain versions) from the same params.
   7. slice    — Trainer.fit at the arxiv preset's widths with agg="sized",
                 float32, cut to 6 meta-steps of 32 tasks (batchsz 10000 ->
                 192), 48 val/test tasks (eval_batchsz 100 -> 48), 1 epoch
                 (10 -> 1). Kernel launch counts are set to 0 just before it
-                and read just after; both kernels must have run. Then warm
+                and read just after; both kernels and both epilogue
+                kernels must have run (the epilogue's launches are then
+                counted phase by phase, each from 0). Then warm
                 sized and dense meta-steps in turns, with the seconds and
                 peak device memory of each, and a profiled sized step.
                 A Trainer built on the card with agg="auto" over this
@@ -228,8 +239,8 @@ from pathlib import Path
 try:
     from gmeta_tpu_torch.utils.cardtime import (HBM_BYTES_S, card_line,
                                                 combine_bound, cuda_ms,
-                                                cuda_ms_b2b, gather_bound,
-                                                rounding_bound)
+                                                cuda_ms_b2b, epilogue_bound,
+                                                gather_bound, rounding_bound)
 except ImportError as e:
     raise SystemExit(f"chip_smoke: the gmeta_tpu_torch package is not "
                      f"beside this script ({e})")
@@ -347,6 +358,187 @@ def check_kernels(device):
             f"(tol rtol/atol {TOLS['float32']}), bf16 "
             f"{err[d]['bfloat16']:.3g} (tol {TOLS['bfloat16']})")
     return err
+
+
+def _bits(t):
+    import torch
+    if t.dtype == torch.bool:
+        return t
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+def _epilogue_inputs(shape, dtype, device, seed=0):
+    """x, n (degree norms) and a per-task bias (T, 1, 1, H), on the card."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    T, B, P, H = shape
+    x = torch.randn(shape, device=device, generator=g).to(dtype)
+    n = torch.rsqrt(torch.randint(1, 30, (T, B, P, 1), device=device,
+                                  generator=g).float()).to(dtype)
+    b = (0.5 * torch.randn((T, 1, 1, H), device=device, generator=g)
+         ).to(dtype)
+    return x, n, b
+
+
+def check_epilogue(device):
+    """Phase 3(b): both epilogue kernels against their plain versions on
+    the card, bit for bit: out, y, the mask, g_x and g_pre, float32 and
+    bf16, with and without the next layer's scale, at ragged shapes (H 1,
+    5, 50, 130 take the scalar path), with pre-activations at the kink
+    (x = 0, b = 0) and a NaN. Returns the number of elements compared."""
+    import torch
+    from gmeta_tpu_torch.ops import epilogue as ep
+    seen = 0
+    for shape in ((3, 2, 5, 1), (2, 3, 7, 5), (2, 1, 9, 50), (4, 2, 3, 130),
+                  (2, 3, 64, 256)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, n, b = _epilogue_inputs(shape, dtype, device, seed=shape[-1])
+            x[:, :, 0] = 0
+            b[..., : shape[-1] // 2] = 0
+            x.view(-1)[-1] = float("nan")
+            g = torch.randn(shape, device=device).to(dtype)
+            for scale_out in (True, False):
+                got = ep._launch_fwd(x, n, b, scale_out, True, True)
+                want = ep.fwd_plain(x, n, b, scale_out, True, True)
+                for a, w in zip(got, want):
+                    assert torch.equal(_bits(a), _bits(w)), (shape, dtype)
+                got = ep._launch_bwd(g, n, want[2], scale_out, True)
+                want = ep.bwd_plain(g, n, want[2], scale_out)
+                for a, w in zip(got, want):
+                    assert torch.equal(_bits(a), _bits(w)), (shape, dtype)
+                seen += 5 * x.numel()
+    torch.cuda.synchronize()
+    log(f"  gcn_epilogue: fwd and bwd bitwise their plain versions over "
+        f"{seen} elements")
+    return seen
+
+
+def check_epilogue_at_scale(x, n, b, g):
+    """Phase 5(b)'s check at a main-path shape, where the grid reaches its
+    cap and each block strides over many rows: both kernels bit for bit
+    their plain versions (out, the mask, g_x, g_pre), and the wrapper the
+    model calls (`graphconv_epilogue`, through `Epilogue` with its saved
+    mask and the bias's `sum_to_size`) bit for bit autograd of the chain
+    of separate ops: out, g_x and g_b, with and without the next layer's
+    scale, b per task (T, 1, 1, H) as the inner loop's fast weights give
+    it and a stride-0 expand of (H,) as theta's. Returns the elements
+    compared."""
+    import torch
+    from gmeta_tpu_torch.ops import epilogue as ep
+    seen = 0
+    for scale_out in (True, False):
+        got = ep._launch_fwd(x, n, b, scale_out, False, True)
+        want = ep.fwd_plain(x, n, b, scale_out, False, True)
+        for a, w in ((got[0], want[0]), (got[2], want[2])):
+            assert torch.equal(_bits(a), _bits(w)), (x.shape, x.dtype)
+        got = ep._launch_bwd(g, n, want[2], scale_out, True)
+        want = ep.bwd_plain(g, n, want[2], scale_out)
+        for a, w in zip(got, want):
+            assert torch.equal(_bits(a), _bits(w)), (x.shape, x.dtype)
+        del got, want
+        seen += 5 * x.numel()
+    theta_b = b[0, 0, 0].clone()
+    for scale_out, per_task in ((True, True), (False, True), (True, False)):
+        res = []
+        for fused in (True, False):
+            xg = x.clone().requires_grad_(True)
+            bg = (b if per_task else theta_b).clone().requires_grad_(True)
+            b_use = bg if per_task else bg.expand(b.shape)
+            if fused:
+                out, _ = ep.graphconv_epilogue(xg, n, b_use, scale_out)
+            else:
+                out = torch.relu(xg * n + b_use)
+                out = out * n if scale_out else out
+            res.append((out.detach(), *torch.autograd.grad(out, (xg, bg),
+                                                           g)))
+            del xg, bg, b_use, out
+        for a, w in zip(*res):
+            assert torch.equal(_bits(a), _bits(w)), (x.shape, x.dtype,
+                                                     scale_out, per_task)
+        seen += 2 * x.numel() + res[0][2].numel()
+        del res
+    torch.cuda.synchronize()
+    return seen
+
+
+def time_epilogue(device, shapes=((32, 37, 1024, 256), (32, 8, 1024, 256))):
+    """Phase 5(b): the epilogue kernels at arxiv's query and support shapes
+    (32 tasks x 37 or 8 bins of 1024 slots, hidden 256), float32 and bf16:
+    first `check_epilogue_at_scale`, then at the query shape their times
+    beside their bound (`epilogue_bound`, the function's own bytes; the
+    backward's with the bias's sum) and the PyTorch chain they replace:
+    forward x * n + b, relu, * n (4 kernels); backward g * n,
+    threshold_backward, * n (3 kernels), each with the bias gradient's
+    sum. Medians of CUDA event times over 20 calls."""
+    import torch
+    from gmeta_tpu_torch.ops import epilogue as ep
+    rows_out = {}
+    for shape in shapes:
+        T, B, P, H = shape
+        rows = T * B * P
+        for dtype in (torch.float32, torch.bfloat16):
+            x, n, b = _epilogue_inputs(shape, dtype, device)
+            x[:, :, 0] = 0                   # pre-activations at the kink
+            b[..., : H // 4] = 0
+            g = torch.randn(shape, device=device).to(dtype)
+            seen = check_epilogue_at_scale(x, n, b, g)
+            log(f"  gcn_epilogue {dtype} {shape}: fwd, bwd and the wrapper's "
+                f"gradients bitwise the chain over {seen} elements")
+            if shape != shapes[0]:
+                del x, n, b, g
+                torch.cuda.empty_cache()
+                continue
+            out, _, mask = ep._launch_fwd(x, n, b, True, False, True)
+            y = torch.relu(x * n + b)
+
+            def chain_fwd():
+                return torch.relu(x * n + b) * n
+
+            def chain_bwd():
+                gp = torch.ops.aten.threshold_backward(g * n, y, 0)
+                return gp * n, gp.sum_to_size(b.shape)
+
+            def fused_bwd():
+                g_x, g_pre = ep._launch_bwd(g, n, mask, True, True)
+                return g_x, g_pre.sum_to_size(b.shape)
+            its = x.element_size()
+            r = {
+                "fwd_ms": cuda_ms(lambda: ep._launch_fwd(x, n, b, True,
+                                                         False, True)),
+                "fwd_no_mask_ms": cuda_ms(lambda: ep._launch_fwd(
+                    x, n, b, True, False, False)),
+                "bwd_kernel_ms": cuda_ms(lambda: ep._launch_bwd(
+                    g, n, mask, True, True)),
+                "bwd_ms": cuda_ms(fused_bwd),
+                "chain_fwd_ms": cuda_ms(chain_fwd),
+                "chain_bwd_ms": cuda_ms(chain_bwd),
+                "bias_sum_ms": cuda_ms(lambda: g.sum_to_size(b.shape)),
+                "checked_elements": seen,
+            }
+            for d in ("fwd", "bwd"):
+                bound_ms, by, nbytes = epilogue_bound(rows, H, d, its,
+                                                      bias_elems=T * H)
+                r[f"{d}_bound_ms"], r[f"{d}_bound_by"] = bound_ms, by
+                r[f"{d}_roofline"] = 100 * bound_ms / r[f"{d}_ms"]
+            # the kernel alone against the bytes it moves: the function's
+            # and g_pre written for the bias's sum
+            r["bwd_kernel_gb_per_s"] = (rows * (H * (3 * its + 1) + its)
+                                        / (r["bwd_kernel_ms"] * 1e-3) / 1e9)
+            rows_out[str(dtype).removeprefix("torch.")] = r
+            log(f"  gcn_epilogue {dtype} {shape}: fwd {r['fwd_ms']:.3f} ms "
+                f"(no mask {r['fwd_no_mask_ms']:.3f}; bound "
+                f"{r['fwd_bound_ms']:.3f}, {r['fwd_roofline']:.1f}%) against "
+                f"the chain's {r['chain_fwd_ms']:.3f}; bwd with the bias "
+                f"sum {r['bwd_ms']:.3f} ms (bound {r['bwd_bound_ms']:.3f}, "
+                f"{r['bwd_roofline']:.1f}%; the kernel alone "
+                f"{r['bwd_kernel_ms']:.3f}, "
+                f"{r['bwd_kernel_gb_per_s']:.0f} GB/s of its own bytes) "
+                f"against the chain's {r['chain_bwd_ms']:.3f} (the sum "
+                f"alone {r['bias_sum_ms']:.3f})")
+            del x, n, b, g, out, mask, y
+            torch.cuda.empty_cache()
+    return rows_out
 
 
 def arxiv_data(seed=7):
@@ -1387,6 +1579,7 @@ def rank_main(out_path, argv, one_step=False):
     plan to out_path (npz). With `one_step`, the fit stops after its first
     checkpoint (every rank, after the save's barrier), before evaluating."""
     import numpy as np
+    from gmeta_tpu_torch.ops import epilogue as ep
     from gmeta_tpu_torch.ops import sized_spmm as sp
     from gmeta_tpu_torch.parallel import collectives
     zero_counts()
@@ -1402,6 +1595,7 @@ def rank_main(out_path, argv, one_step=False):
     meta = {"rank": int(os.environ["RANK"]), "main_s": time.time() - t0,
             "launches": dict(sp.launches),
             "csr_launches": dict(sp.csr_launches),
+            "epilogue_launches": dict(ep.launches),
             "seconds": dict(collectives.seconds),
             "calls": dict(collectives.calls),
             "global_step": global_step,
@@ -2293,6 +2487,7 @@ def main():
     try:
         from gmeta_tpu_torch.config import PRESETS
         from gmeta_tpu_torch.ops import cuda_build
+        from gmeta_tpu_torch.ops import epilogue as ep
         from gmeta_tpu_torch.ops import sized_spmm as sp
         from gmeta_tpu_torch.run.train import Trainer
         from gmeta_tpu_torch.utils.device import resolve_device
@@ -2309,21 +2504,34 @@ def main():
 
     t = phase("2 build")
 
+    def epi_take():
+        """The epilogue's launches in this process since the last take;
+        sets them to 0."""
+        got = dict(ep.launches)
+        for k in ep.launches:
+            ep.launches[k] = 0
+        return got
+
     def timed(fn, name):
         t0 = time.time()
         return fn(name), time.time() - t0
-    with ThreadPoolExecutor(2) as pool:      # nvcc and g++ at once
+    with ThreadPoolExecutor(3) as pool:      # nvcc and g++ at once
         cu = pool.submit(timed, cuda_build.build, "sized_spmm")
+        epi = pool.submit(timed, cuda_build.build, "gcn_epilogue")
         cpp = pool.submit(timed, cuda_build.build_host, "extract")
-        (path, cu_s), (host_path, cpp_s) = cu.result(), cpp.result()
+        (path, cu_s), (epi_path, epi_s) = cu.result(), epi.result()
+        host_path, cpp_s = cpp.result()
     build_s = time.time() - t
-    log(f"  sized_spmm.cu -> {path.name} in {cu_s:.1f} s; extract.cpp -> "
-        f"{host_path.name} in {cpp_s:.1f} s; both {build_s:.1f} s")
-    log("  " + path.with_suffix(".ptxas.txt").read_text()
-        .strip().replace("\n", "\n  "))
+    log(f"  sized_spmm.cu -> {path.name} in {cu_s:.1f} s; gcn_epilogue.cu "
+        f"-> {epi_path.name} in {epi_s:.1f} s; extract.cpp -> "
+        f"{host_path.name} in {cpp_s:.1f} s; all {build_s:.1f} s")
+    for so in (path, epi_path):
+        log("  " + so.with_suffix(".ptxas.txt").read_text()
+            .strip().replace("\n", "\n  "))
 
     t = phase("3 kernel checks")
     errs = check_kernels(device)
+    check_epilogue(device)
     log(f"  {time.time() - t:.1f} s")
 
     t = phase("4 data: arxiv-scale synthetic graph")
@@ -2344,6 +2552,7 @@ def main():
     t = phase("5 kernel timing at the arxiv query shape")
     batch = next(tr_ds.batches(task_num, shuffle=False))
     timing, qry_shape = time_kernels(batch, device)
+    epi_timing = time_epilogue(device)
     log(f"  {time.time() - t:.1f} s")
 
     t = phase("6 one train_step: cuda == cpu")
@@ -2358,11 +2567,14 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     for k in sp.launches:
         sp.launches[k] = 0
+    epi_take()
     t_fit = time.time()
     result = trainer.fit()
     torch.cuda.synchronize()
     fit_s = time.time() - t_fit
     main_path = dict(sp.launches)
+    epi_by_phase = {"7": epi_take()}
+    assert all(epi_by_phase["7"].values()), epi_by_phase
     fit_sha256 = theta_digest([p.detach().cpu().numpy()
                                for p in trainer.learner.params])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2384,9 +2596,12 @@ def main():
     # one more meta-step on its own: kernel launches per meta-step
     for k in sp.launches:
         sp.launches[k] = 0
+    epi_take()
     assert math.isfinite(trainer.learner.train_step(batch)["meta_loss"]
                          .item())
     per_step = dict(sp.launches)
+    epi_per_step = epi_take()
+    assert epi_per_step["fwd"] > 0 and epi_per_step["bwd"] > 0, epi_per_step
     # warm meta-steps, sized kernels vs dense torch.bmm, in turns, each
     # with its peak device memory
     dense = dense_learner(trainer, store)
@@ -2412,7 +2627,8 @@ def main():
     log(f"  warm meta-step {step_s:.3f} s ({task_num / step_s:.2f} tasks/s, "
         f"{task_num * tr_ds.mean_edges_per_task / step_s:.0f} edges/s), "
         f"dense {dense_s:.3f} s; "
-        f"launches {per_step}; fit steps compute_s "
+        f"launches {per_step}, epilogue {epi_per_step}; fit steps "
+        f"compute_s "
         f"{[round(r['compute_s'], 3) for r in steps]}; evaluate(test) of "
         f"{n_eval} tasks {eval_s:.3f} s")
     del trainer
@@ -2420,15 +2636,18 @@ def main():
 
     t = phase("8 the execution modes: streaming, compact pool, host-windowed"
               " pool; kill and resume")
+    epi_take()
     modes, mode_launches = fit_modes(
         dataclasses.replace(cfg, train_result_report_steps=2), store, ds)
+    epi_by_phase["8"] = epi_take()
     log(f"  {time.time() - t:.1f} s; kernel launches of phase 8 "
-        f"{mode_launches}")
+        f"{mode_launches}, epilogue {epi_by_phase['8']}")
 
     t = phase("9 the CLI from disk: prepare, extract, remat")
     cli, cli_launches, plain9 = cli_phase(store, ds, device)
+    epi_by_phase["9"] = epi_take()
     log(f"  {time.time() - t:.1f} s; kernel launches of phase 9 "
-        f"{cli_launches}")
+        f"{cli_launches}, epilogue {epi_by_phase['9']}")
     del store, ds, tr_ds, batch
     gc.collect()
 
@@ -2436,28 +2655,38 @@ def main():
     (mesh, mesh_launches, rect_launches, combine_launches,
      (rect, combine_row, rect_shapes)) = mesh_phase(device, plain9)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
+    # in this process, and in (c)'s four task-DP ranks, as the packed
+    # kernel's count of the phase
+    epi_by_phase["10"] = epi_take()
+    for meta in mesh["c_tasks"]["ranks"]:
+        for k in ep.launches:
+            epi_by_phase["10"][k] += meta["epilogue_launches"][k]
     log(f"  {time.time() - t:.1f} s; kernel launches of phase 10: packed "
         f"{mesh_launches}, csr_gather {rect_launches}, combine "
-        f"{combine_launches}")
+        f"{combine_launches}, epilogue {epi_by_phase['10']}")
 
     t = phase("11 parity: evaluation from the runs of record's checkpoints;"
               " the entry points")
     parity11, packed11, dry11 = parity_phase(device)
+    epi_by_phase["11"] = epi_take()
     log(f"  {time.time() - t:.1f} s; kernel launches of phase 11: packed "
-        f"{packed11}, the dry run's ranks {dry11}")
+        f"{packed11}, the dry run's ranks {dry11}, epilogue "
+        f"{epi_by_phase['11']}")
     log(json.dumps({"parity": parity11}))
 
     t = phase("12 measure: the measurement scripts at cut sizes")
     measure12, l12 = measure_phase()
+    epi_by_phase["12"] = epi_take()
     log(f"  {time.time() - t:.1f} s; kernel launches of phase 12: packed "
         f"{l12['packed']}, csr_gather {l12['csr']}, combine "
-        f"{l12['combine']}")
+        f"{l12['combine']}, epilogue {epi_by_phase['12']}")
 
     t = phase("13 calibrate: the replica calibrators")
     calibrate13, l13 = calibrate_phase(device)
+    epi_by_phase["13"] = epi_take()
     log(f"  {time.time() - t:.1f} s; kernel launches of phase 13: packed "
         f"{l13['packed']}, csr_gather {l13['csr']}, combine "
-        f"{l13['combine']}")
+        f"{l13['combine']}, epilogue {epi_by_phase['13']}")
 
     t = phase("14 bench: the throughput benchmark's five shapes; the "
               "shared-adjacency call")
@@ -2467,8 +2696,10 @@ def main():
     del arxiv14
     bench14.update(phase_s=time.time() - t, shared_s=time.time() - t1,
                    launches=l14)
+    epi_by_phase["14"] = epi_take()
     log(f"  {time.time() - t:.1f} s; kernel launches of phase 14: packed "
-        f"{l14}, the shared call {shared_launches}")
+        f"{l14}, the shared call {shared_launches}, epilogue "
+        f"{epi_by_phase['14']}")
     log(json.dumps({"bench": bench14}))
 
     kernels = []
@@ -2563,6 +2794,26 @@ def main():
         "launches_by_direction": shared_launches,
         **shared14,
     })
+    for direction in ("fwd", "bwd"):
+        kernels.append({
+            "name": f"gcn_epilogue_{direction}",
+            "route": "cuda",
+            "source": "gmeta_tpu_torch/csrc/gcn_epilogue.cu",
+            # XLA fuses this chain of jnp ops in the JAX package
+            "replaces": None,
+            # each phase's launches in this process (phase 10: and in
+            # its task-DP ranks), counted from 0 at the phase's start;
+            # phase 7 is the fit alone, as for sized_spmm
+            "launches": sum(c[direction] for c in epi_by_phase.values()),
+            "launches_by_phase": {p: c[direction]
+                                  for p, c in epi_by_phase.items()},
+            "launches_per_meta_step": epi_per_step[direction],
+            "shape": "32 x 37 x 1024 x 256",
+            "by_dtype": {d: {k: v for k, v in r.items()
+                             if k.startswith(direction)
+                             or k.startswith(f"chain_{direction}")}
+                         for d, r in epi_timing.items()},
+        })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"slice": {
         "fit_s": fit_s, "fit_theta_sha256": fit_sha256,

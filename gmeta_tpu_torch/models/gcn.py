@@ -9,7 +9,10 @@ gmeta_tpu/models/gcn.py does:
   (learner.py:38-45)
 - matmul-order switch: project first when in_feats > out_feats
   (learner.py:34-47) — numerically equivalent, kept as a FLOP optimization
-- +bias then ReLU per GraphConv (learner.py:51-54)
+- +bias then ReLU per GraphConv (learner.py:51-54); the norm scale, bias,
+  ReLU and the next layer's norm pre-scale are one op
+  (ops/epilogue.graphconv_epilogue: the plain chain on the CPU, one
+  kernel each way on CUDA, the chain's bits either way)
 - after the LAST GraphConv: center-node readout by flat slot index
   (learner.py:159-170); LinkPred concatenates both endpoints' embeddings
   (learner.py:165-168)
@@ -38,6 +41,7 @@ import torch
 from torch import nn
 
 from gmeta_tpu_torch.data.pack import SubgraphSet
+from gmeta_tpu_torch.ops import epilogue
 from gmeta_tpu_torch.ops.sized_spmm import (SizedGraph, aggregate_sized,
                                             sized_graph)
 from gmeta_tpu_torch.ops.spmm import (aggregate_dense, degrees_from_dense,
@@ -180,24 +184,30 @@ def forward(params, sg: SubgraphSet, feats: torch.Tensor,
 
     h = graph.h0 if graph.h0 is not None else gather_features(
         sg, feats, compute_dtype)
+    # each layer's epilogue scales its output for the next layer, so only
+    # the first layer's input is scaled here
+    h = h * norm
 
     idx = 0
     gcn_layers = [d for n, d in layer_spec if n == "GraphConv"]
     for li, (fan_in, fan_out) in enumerate(gcn_layers):
+        last = li == len(gcn_layers) - 1
         w = params[idx].to(compute_dtype)
         b = params[idx + 1].to(compute_dtype)
         idx += 2
-        h = h * norm
         if fan_in > fan_out:
             h = _matmul(h.reshape(T, B * P, fan_in), w, compute_dtype)
             h = _aggregate(h.reshape(T * B, P, fan_out)).to(compute_dtype)
         else:
             h = _aggregate(h.reshape(T * B, P, fan_in)).to(compute_dtype)
             h = _matmul(h.reshape(T, B * P, fan_in), w, compute_dtype)
-        h = torch.relu(h.reshape(T, B, P, fan_out) * norm + _bias(b, 4))
+        # relu(h * norm + b), times norm again where a layer follows
+        h, y = epilogue.graphconv_epilogue(
+            h.reshape(T, B, P, fan_out), norm, _bias(b, 4),
+            scale_out=not last, keep_y=collect is not None)
         if collect is not None:
-            collect.append(h)
-        if li == len(gcn_layers) - 1:
+            collect.append(y)
+        if last:
             # center readout: flat slots bin*P + i index each task's own
             # (B*P, H) rows
             h = h.reshape(T, B * P, fan_out)

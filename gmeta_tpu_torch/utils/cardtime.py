@@ -183,6 +183,27 @@ def combine_bound(n_chunks, n_rows, H, itemsize=4):
             "operations" if t_ops >= t_bytes else "bytes", nbytes)
 
 
+def epilogue_bound(rows, H, direction, itemsize=4, bias_elems=0):
+    """The least time the card could take for the GraphConv epilogue over
+    rows x H elements of `itemsize` bytes (ops/epilogue.py), in ms, and
+    what bounds it: the function's own inputs read once and its outputs
+    written once. Forward, x read and out written, the one-byte mask
+    written and the norm read; backward, g and the mask read, g_x
+    written, the norm read and the bias's gradient (`bias_elems`
+    elements) written. Or 4 operations an element at the float32 rate,
+    whichever is longer; with the bytes. The backward's g_pre, which the
+    kernel writes and the bias's sum reads again, is its design's
+    traffic, not the function's, and is not counted."""
+    moved = 2 * itemsize + 1
+    nbytes = float(rows) * (H * moved + itemsize)
+    if direction == "bwd":
+        nbytes += float(bias_elems) * itemsize
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = 4.0 * rows * H / FP32_PEAK
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", nbytes)
+
+
 def dense_bound(S, P, H, dtype):
     """The least time for S products (P, P) @ (P, H), in ms, and what
     bounds it: 2 S P^2 H operations at the dtype's peak (float32 outside
