@@ -6,7 +6,8 @@ sizes, many seeds in one process:
 
 Per seed it draws the cell's inputs with a pool of just the checked steps'
 tasks (their sizes are the cell's; only the pool is smaller) and reads the
-comparison's three numbers (correct.readings) for:
+comparison's three numbers (correct.readings), with the cell's model's
+plain reference (`models/<model>.py` `Reference`), for:
 - `program`: the program's first three meta-steps, as a run reads them
   (the lower readings);
 - `control`: the plain reference with every matrix product in TF32, in
@@ -34,13 +35,12 @@ def readings(cell, seed: int, device) -> dict:
     import torch
 
     from benchmark import correct, harness
-    from benchmark.reference.protomaml import Reference
 
-    cfg = cell.cfg
+    cfg, Reference = cell.cfg, cell.model.Reference
     T = cfg["task_num"]
     n = harness.CHECK_STEPS * T
     theta0, feats, spt, qry, order, first, checked = harness.inputs(
-        cfg, seed, device, n)
+        cell, seed, device, n)
     ml, _ = harness.learner(cfg, cell.traffic["agg"], theta0, feats, spt,
                             qry, device)
     prog = harness.first_steps(ml, first)

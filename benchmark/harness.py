@@ -1,6 +1,7 @@
 """One run of a cell: the program set up from the seed, its first three
 meta-steps recorded for the comparison, the measured (or traced) window,
-then the plain reference over the same three steps.
+then the plain reference of the cell's model (`cell.load_model`) over the
+same three steps.
 
 The program is driven as its Trainer drives a resident compact pool
 (`run/train.py` `_fit_device_pool`): `MetaLearner.train_steps_from_compact`
@@ -24,7 +25,6 @@ import torch
 from benchmark import correct, generate
 from benchmark.cell import Cell, load_metric
 from benchmark.counts.model import set_shapes
-from benchmark.reference.protomaml import Reference
 from benchmark.trace import Trace
 
 CHECK_STEPS = 3
@@ -55,10 +55,12 @@ def report_steps(cfg: dict, spt: dict, qry: dict) -> int:
                       cfg["batchsz"] // cfg["task_num"], cap))
 
 
-def inputs(cfg: dict, seed: int, device, n_tasks: int):
-    """(theta0, feature table as numpy, support and query pool, the task
-    order, the first CHECK_STEPS steps' rows, their tasks) from the seed."""
-    theta0 = generate.make_theta(cfg, seed, device)
+def inputs(cell: Cell, seed: int, device, n_tasks: int):
+    """(theta0 of the cell's model, feature table as numpy, support and
+    query pool, the task order, the first CHECK_STEPS steps' rows, their
+    tasks) from the seed. Only theta depends on the model."""
+    cfg = cell.cfg
+    theta0 = cell.model.make_theta(cfg, seed, device)
     feats = generate.make_features(cfg, seed, device).cpu().numpy()
     spt, qry = generate.make_pool(cfg, n_tasks, seed, device)
     order = generate.task_order(n_tasks, cfg["task_num"], seed)
@@ -148,7 +150,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     t0 = time.perf_counter()
     theta0, feats, spt, qry, order, first, checked = inputs(
-        cfg, seed, device, cfg["batchsz"])
+        cell, seed, device, cfg["batchsz"])
     K = report_steps(cfg, spt, qry)
     marks["inputs_s"] = time.perf_counter() - t0
 
@@ -208,7 +210,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         tr = (Trace.from_profiler(prof, steps, window_ns, host)
               if prof is not None else Trace(window_ns, [], host, steps))
         del prof
-        ctx = types.SimpleNamespace(trace=tr, cfg=cfg, traffic=mix, agg=agg)
+        ctx = types.SimpleNamespace(trace=tr, cfg=cfg, model=cell.model,
+                                    traffic=mix, agg=agg)
         per_layer = {}
         for m in cell.per_layer:
             value = load_metric(m["name"], cell.root).read(ctx)
@@ -231,8 +234,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     feats_dev = generate.make_features(cfg, seed, device)
-    ref = Reference(cfg).run(theta0, reference_tasks(checked, T),
-                             feats_dev)
+    ref = cell.model.Reference(cfg).run(theta0, reference_tasks(checked, T),
+                                        feats_dev)
     numbers = correct.readings(theta0, prog, ref)
     out["correct"], out["checks"] = correct.judge(numbers, cell.limits)
     out["readings"] = numbers

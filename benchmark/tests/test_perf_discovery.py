@@ -74,3 +74,115 @@ def test_a_configuration_mix_metric_and_cell_added_as_files(checkout):
 def test_an_unknown_cell_is_refused(checkout):
     with pytest.raises(KeyError):
         load_cell("nope.pool", checkout)
+
+
+# A stand-in for a second architecture: the GCN's pieces, its step's
+# operations doubled, its theta and reference counted where they are used.
+STAND_IN = """
+from benchmark.models import gcn
+
+calls = []
+
+
+def make_theta(cfg, seed, device):
+    calls.append("theta")
+    return gcn.make_theta(cfg, seed, device)
+
+
+class Reference(gcn.Reference):
+    def __init__(self, cfg, **kw):
+        calls.append("reference")
+        super().__init__(cfg, **kw)
+
+
+def step_flops(cfg):
+    return 2 * gcn.step_flops(cfg)
+
+
+aggregation_bound_ms = gcn.aggregation_bound_ms
+"""
+
+
+def _files(root):
+    return {p.relative_to(root): p.read_bytes()
+            for p in (root / "benchmark").rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def _add_cell(root, cfg_name, model):
+    """A configuration that names `model`, and a cell of it, added to the
+    copy as new files and entries only; the cell's name."""
+    from conftest import TINY
+
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    cfg = dict(TINY["tiny_node"], name=cfg_name, model=model)
+    path = f"benchmark/configs/{cfg_name}.json"
+    (root / path).write_text(json.dumps(cfg))
+    cell = f"{cfg_name}.tiny"
+    (root / f"benchmark/limits/{cell}.json").write_text(
+        json.dumps(TINY_LIMITS))
+    bench["configs"].append({"name": cfg_name, "source": "test",
+                             "file": path, "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": cell, "config": cfg_name,
+                               "traffic": "tiny", "chips": 1,
+                               "why": "test"})
+    for m in bench["per_layer"]:
+        m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return cell
+
+
+def test_a_model_added_as_a_file(checkout):
+    """A configuration names its model, and one new file under
+    benchmark/models/ gives its theta, reference and counts: discovery,
+    a traced run that uses them and is correct, and `mfu` from the new
+    count, with no file of the benchmark touched."""
+    import types
+
+    from benchmark import harness
+    from benchmark.cell import load_model
+    from benchmark.trace import Trace
+    from conftest import SEEDS
+
+    before = _files(checkout)
+    (checkout / "benchmark/models/gcn_x2.py").write_text(STAND_IN)
+    name = _add_cell(checkout, "added_model", "gcn_x2")
+    after = _files(checkout)
+    assert {k: v for k, v in after.items() if k in before} == before
+    assert set(after) - set(before) == {
+        p.relative_to(checkout) for p in (
+            checkout / "benchmark/models/gcn_x2.py",
+            checkout / "benchmark/configs/added_model.json",
+            checkout / f"benchmark/limits/{name}.json")}
+
+    cell = load_cell(name, checkout)
+    assert cell.model.__file__ == str(checkout / "benchmark/models/gcn_x2.py")
+    out = harness.run(cell, SEEDS["tiny_node.pool"], 0.2, True, "cpu", 0.0,
+                      log=lambda m: None)
+    assert cell.model.calls == ["theta", "reference"]
+    assert out["correct"], out["checks"]
+    assert {"mfu", "agg_roofline"} <= {m["name"] for m in cell.per_layer}
+    assert "mfu" in out["per_layer"]
+
+    gcn = load_cell("tiny_node.pool", checkout)
+    assert gcn.model.__file__ == str(checkout / "benchmark/models/gcn.py")
+    assert load_model(gcn.cfg, checkout).__file__ == gcn.model.__file__
+    trace = Trace((0, 2_000_000_000), [(0, 10**9, "csr_gather_kernel")],
+                  [], 5)
+
+    def read(metric, c):
+        ctx = types.SimpleNamespace(trace=trace, cfg=c.cfg, model=c.model,
+                                    traffic=c.traffic, agg="sized")
+        return load_metric(metric, checkout).read(ctx)
+    assert read("mfu", cell) == 2 * read("mfu", gcn) > 0
+    assert read("agg_roofline", cell) == read("agg_roofline", gcn) > 0
+
+
+def test_a_configuration_naming_a_missing_model_is_refused(checkout):
+    from benchmark.cell import load_model
+
+    name = _add_cell(checkout, "no_model", "nope")
+    with pytest.raises(KeyError, match="models/nope.py"):
+        load_cell(name, checkout)
+    with pytest.raises(KeyError, match="models/nope.py"):
+        load_model({"name": "no_model", "model": "nope"}, checkout)

@@ -90,9 +90,14 @@ print(sorted({{m.split(".")[0] for m in sys.modules}}))
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    r = _python("import sys\n"
+    r = _python("import sys, json\n"
                 "import benchmark.reference.protomaml, benchmark.correct\n"
                 "import benchmark.generate, benchmark.counts.model\n"
+                "import benchmark.models.gcn\n"
+                "from benchmark.cell import ROOT, load_model\n"
+                "cfg = json.loads((ROOT / 'benchmark/configs/arxiv.json')"
+                ".read_text())\n"
+                "assert load_model(cfg).Reference\n"
                 "print(sorted({m.split('.')[0] for m in sys.modules}))")
     assert r.returncode == 0, r.stderr
     roots = set(eval(r.stdout.strip().splitlines()[-1]))
