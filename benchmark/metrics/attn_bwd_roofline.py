@@ -1,0 +1,17 @@
+"""The GAT attention's backward kernels' share of their roofline: the least
+time the traced window's attention calls could take backward (the cell's
+model's `attention_bound_ms(cfg, "bwd")`, benchmark/models/gat.py) over
+the device time of the three kernels that run them (names beginning
+`gat_attn_bwd`: the delta, the transposed walk and the dt kernel). Nothing
+to read where they did not run."""
+
+UNIT = "%"
+KERNEL = "gat_attn_bwd"
+
+
+def read(ctx):
+    bound = getattr(ctx.model, "attention_bound_ms", None)
+    t = ctx.trace.device_s(lambda n: KERNEL in n)
+    if bound is None or t <= 0:
+        return None
+    return 100.0 * bound(ctx.cfg, "bwd") * ctx.trace.steps / 1e3 / t

@@ -7,8 +7,9 @@ Phases; any failure raises and the script exits non-zero:
   1. device   — CUDA must be available; prints the card's name and power
                 limit (nvidia-smi).
   2. build    — compiles csrc/sized_spmm.cu (the packed body, the
-                full-graph body and the combine kernel) and
-                csrc/gcn_epilogue.cu from this checkout (nvcc, sm_90a).
+                full-graph body and the combine kernel),
+                csrc/gcn_epilogue.cu and csrc/gat_attention.cu from this
+                checkout (nvcc, sm_90a).
   3. checks   — each kernel against its plain PyTorch version on the card,
                 on packed edge lists (duplicates, pad edges): P in
                 {512, 1024}, live sizes {0, 1, 127, 129, P},
@@ -205,16 +206,34 @@ Phases; any failure raises and the script exits non-zero:
                 timed in float32 against the T launches, sized_plain and
                 torch.sparse.mm (on h laid out as rows of T * H), beside
                 its bound at width T * H.
+  15. gat     — GAT's attention kernels (ops/gat_attention.py,
+                csrc/gat_attention.cu) at the gat_ppi.pool cell's set
+                shapes: (a) at 16 tasks x 16 bins (query) and x 6 bins
+                (support) of 1024 slots, 586 live, the cell's real edges,
+                heads of 4 x 256 and 6 x 121: the wrapper `attend` and
+                the autograd Function on the card against `fwd_plain` and
+                `bwd_plain` (one forward and three backward launches a
+                call; o and the gradient's z, s and t parts within rtol
+                1e-4, atol 2e-5 of each tensor's largest magnitude);
+                (b) one meta-step of the cell's configuration (the
+                tissue_ppi preset with arch 'gat', 16 tasks, float32) on a
+                batch of its geometry, after a warm step, launch counts
+                set to 0 just before and read just after: 3 layers x
+                (2 U + 2) forwards and x (U + 2) backwards of 3 kernels;
+                its seconds and peak memory; (c) bench_gat: each
+                direction's kernels timed at both sets and widths beside
+                `attention_bound` and the plain versions.
 
 Phase 2 builds the CUDA kernels (nvcc) and the host extraction engine (g++)
 at once. Prints phase 11's parity JSON line, phase 14's bench JSON line,
 the kernels' JSON line (the packed kernel's launches summed over phases
 7-14 and every rank, the rectangular entry point's and its combine
-kernel's over phases 10-13, the shared call's from 14(b)),
+kernel's over phases 10-13, the shared call's from 14(b), the GAT
+attention's from 15),
 the slice's JSON line (with the modes' warm tasks/s, data_s and peak
 device memory under "modes", phase 9's numbers under "cli", phase 10's
-under "mesh", phase 12's under "measure" and phase 13's under
-"calibrate"), the card's name and power
+under "mesh", phase 12's under "measure", phase 13's under
+"calibrate" and phase 15's under "gat"), the card's name and power
 limit, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or the JAX package,
 and neither do its rank processes.
@@ -2479,6 +2498,156 @@ def shared_phase(arxiv, device):
     return fields, launches
 
 
+# GAT_SETS: the gat_ppi.pool cell's sets, (bins, real edges a task, edge
+# slots, centers) at P = 1024 slots with 586 live a bin (benchmark/configs/
+# gat_ppi.json's buckets and fill, bench_gat.SHAPES's real edges)
+GAT_P, GAT_LIVE, GAT_ROWS = 1024, 586, 56944
+GAT_SETS = {"spt": (6, 36146, 51200, 6), "qry": (16, 99763, 141312, 20)}
+
+
+def gat_set(rng, T, B, E_real, E, S):
+    """T tasks' packed SubgraphSet (numpy, leading task axis) at P =
+    GAT_P: GAT_LIVE live slots a bin, each with an in-edge, the rest of
+    the E_real real edges at random live destinations, sources in the
+    destination's bin; then pad edges (src 0, dst B*P-1, mask 0) to E
+    slots, as the packer leaves them. Center k sits at slot k // B of bin
+    k % B, its label k % 2."""
+    import numpy as np
+
+    from gmeta_tpu_torch.data.pack import SubgraphSet
+    P, live = GAT_P, GAT_LIVE
+    first = np.arange(B * live)
+    first = np.broadcast_to(first // live * P + first % live, (T, B * live))
+    rest = E_real - B * live
+    dst = np.concatenate([first, rng.integers(0, B, (T, rest)) * P
+                          + rng.integers(0, live, (T, rest))], 1)
+    src = dst // P * P + rng.integers(0, live, (T, E_real))
+    order = np.argsort(dst, axis=1, kind="stable")
+    dst, src = (np.take_along_axis(a, order, 1) for a in (dst, src))
+    pad = E - E_real
+    k = np.arange(S)
+    centers = np.broadcast_to((k % B * P + k // B)[:, None], (T, S, 2))
+    return SubgraphSet(
+        node_gid=rng.integers(0, GAT_ROWS, (T, B, P)).astype(np.int32),
+        node_mask=np.broadcast_to((np.arange(P) < live).astype(np.float32),
+                                  (T, B, P)).copy(),
+        edge_src=np.pad(src, ((0, 0), (0, pad))).astype(np.int32),
+        edge_dst=np.pad(dst, ((0, 0), (0, pad)),
+                        constant_values=B * P - 1).astype(np.int32),
+        edge_mask=np.pad(np.ones((T, E_real), np.float32), ((0, 0), (0, pad))),
+        centers=centers.astype(np.int32).copy(),
+        labels=np.broadcast_to(k % 2, (T, S)).astype(np.int32).copy(),
+        bin_fill=np.full((T, B), live, np.int32))
+
+
+def check_gat(device):
+    """Phase 15(a): the wrapper `attend` and the autograd Function on the
+    card against `fwd_plain` and `bwd_plain` at the cell's set shapes
+    (bench_gat.SHAPES: 16 tasks x 16 or 6 bins x 1024 slots) and both
+    head widths (4 x 256, 16-byte lanes; 6 x 121, one float a lane): one
+    forward and three backward launches a call; o, and the gradient of
+    zst's z, s and t, within rtol 1e-4 and atol 2e-5 of each tensor's
+    largest magnitude (float32 sums of a row's ~11 terms, and of F
+    products, in another order; g . z - D cancels). A row averages ~11
+    terms of unit scale, so a kernel that dropped or doubled one of them,
+    or took the wrong slope, errs by percents of the scale, three orders
+    over the tolerance. Returns {set heads: max abs error over
+    scale, by tensor}."""
+    import torch
+
+    from gmeta_tpu_torch.ops import gat_attention as ga
+    from gmeta_tpu_torch.scripts.bench_gat import HEADS, SHAPES, packed_graph
+    errs = {}
+    for name, (T, B, P, live, edges) in SHAPES.items():
+        graph = packed_graph(T, B, P, live, edges, device)
+        N = T * B * P
+        for K, F in HEADS:
+            KF = K * F
+            gen = torch.Generator(device=device).manual_seed(K)
+            zst = torch.randn(N, KF + 2 * K, generator=gen, device=device)
+            g = torch.randn(N, KF, generator=gen, device=device)
+            before = dict(ga.launches)
+            x = zst.clone().requires_grad_()
+            o = ga.attend(graph, x, K, F)
+            (dzst,) = torch.autograd.grad(o, x, g)
+            torch.cuda.synchronize()
+            assert {k: ga.launches[k] - before[k] for k in before} == \
+                {"fwd": 1, "bwd": 3}, (name, K, F, ga.launches, before)
+            want_o, lse = ga.fwd_plain(graph, zst, K, F)
+            want = ga.bwd_plain(graph, zst, want_o, lse, g, K, F)
+            row = {}
+            for what, got, ref in (
+                    ("o", o.detach(), want_o),
+                    ("dz", dzst[:, :KF], want[:, :KF]),
+                    ("ds", dzst[:, KF:KF + K], want[:, KF:KF + K]),
+                    ("dt", dzst[:, KF + K:], want[:, KF + K:])):
+                scale = float(ref.abs().max())
+                torch.testing.assert_close(
+                    got, ref, rtol=1e-4, atol=2e-5 * scale,
+                    msg=lambda m: f"{name} {K}x{F} {what}: {m}")
+                row[what] = float((got - ref).abs().max()) / scale
+            errs[f"{name} {K}x{F}"] = row
+            log(f"  {name} {T}x{B}x{P} heads {K}x{F}: max abs error over "
+                f"scale {row}")
+            del zst, g, x, o, dzst, want_o, lse, want
+            torch.cuda.empty_cache()
+    return errs
+
+
+def gat_step(device):
+    """Phase 15(b): one GAT meta-step of the gat_ppi.pool cell's
+    configuration (PRESETS["tissue_ppi"] with arch 'gat' at the published
+    widths, 16 tasks, float32, the CSR path) on a batch of its geometry
+    (GAT_SETS) and PPI's feature rows, after a warm step, launch counts set
+    to 0 just before it and read just after. Each of the 3 layers runs
+    2 U + 2 attention forwards (support: the curve's and U inner; query:
+    the curve's after each of U steps and before them) and U + 2
+    backwards (U inner gradients; the meta-gradient through the query and
+    the last support pass), 3 kernels a backward. Returns (launches,
+    seconds, peak GB)."""
+    import numpy as np
+    import torch
+
+    from gmeta_tpu_torch.config import PRESETS, build_model_config
+    from gmeta_tpu_torch.data.pack import TaskBatch
+    from gmeta_tpu_torch.meta.maml import MetaLearner
+    from gmeta_tpu_torch.ops import gat_attention as ga
+    cfg = dataclasses.replace(PRESETS["tissue_ppi"], arch="gat",
+                              task_num=16, dtype="float32",
+                              agg="sized").validate()
+    spec = build_model_config(cfg, 50, cfg.n_way)
+    learner = MetaLearner(
+        spec, cfg.n_way, update_lr=cfg.update_lr, meta_lr=cfg.meta_lr,
+        update_step=cfg.update_step, update_step_test=cfg.update_step_test,
+        first_order=cfg.first_order, seed=cfg.seed,
+        track_curve=cfg.track_train_curve, agg="sized", device=device)
+    rng = np.random.default_rng(0)
+    learner.set_features(rng.standard_normal((GAT_ROWS, 50),
+                                             dtype=np.float32))
+    batch = TaskBatch(*(gat_set(rng, cfg.task_num, *GAT_SETS[s])
+                        for s in ("spt", "qry")))
+    assert math.isfinite(learner.train_step(batch)["meta_loss"].item())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ga.launches:
+        ga.launches[k] = 0
+    t0 = time.time()
+    loss = learner.train_step(batch)["meta_loss"].item()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    got = dict(ga.launches)
+    U, layers = cfg.update_step, len(spec) - 1
+    want = {"fwd": layers * (2 * U + 2), "bwd": layers * 3 * (U + 2)}
+    assert math.isfinite(loss) and got == want, (loss, got, want)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  one meta-step of 16 tasks: {seconds:.3f} s "
+        f"({cfg.task_num / seconds:.2f} tasks/s), launches {got}, peak "
+        f"{peak:.2f} GB, meta-loss {loss:.6f}")
+    del learner, batch
+    torch.cuda.empty_cache()
+    return got, seconds, peak
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2488,6 +2657,7 @@ def main():
         from gmeta_tpu_torch.config import PRESETS
         from gmeta_tpu_torch.ops import cuda_build
         from gmeta_tpu_torch.ops import epilogue as ep
+        from gmeta_tpu_torch.ops import gat_attention
         from gmeta_tpu_torch.ops import sized_spmm as sp
         from gmeta_tpu_torch.run.train import Trainer
         from gmeta_tpu_torch.utils.device import resolve_device
@@ -2515,17 +2685,20 @@ def main():
     def timed(fn, name):
         t0 = time.time()
         return fn(name), time.time() - t0
-    with ThreadPoolExecutor(3) as pool:      # nvcc and g++ at once
+    with ThreadPoolExecutor(4) as pool:      # nvcc and g++ at once
         cu = pool.submit(timed, cuda_build.build, "sized_spmm")
         epi = pool.submit(timed, cuda_build.build, "gcn_epilogue")
+        gat = pool.submit(timed, cuda_build.build, "gat_attention")
         cpp = pool.submit(timed, cuda_build.build_host, "extract")
         (path, cu_s), (epi_path, epi_s) = cu.result(), epi.result()
+        gat_path, gat_s = gat.result()
         host_path, cpp_s = cpp.result()
     build_s = time.time() - t
     log(f"  sized_spmm.cu -> {path.name} in {cu_s:.1f} s; gcn_epilogue.cu "
-        f"-> {epi_path.name} in {epi_s:.1f} s; extract.cpp -> "
+        f"-> {epi_path.name} in {epi_s:.1f} s; gat_attention.cu -> "
+        f"{gat_path.name} in {gat_s:.1f} s; extract.cpp -> "
         f"{host_path.name} in {cpp_s:.1f} s; all {build_s:.1f} s")
-    for so in (path, epi_path):
+    for so in (path, epi_path, gat_path):
         log("  " + so.with_suffix(".ptxas.txt").read_text()
             .strip().replace("\n", "\n  "))
 
@@ -2701,6 +2874,18 @@ def main():
         f"{l14}, the shared call {shared_launches}, epilogue "
         f"{epi_by_phase['14']}")
     log(json.dumps({"bench": bench14}))
+    torch.cuda.empty_cache()
+
+    t = phase("15 gat: the attention kernels at gat_ppi.pool's shapes; one "
+              "meta-step of its configuration")
+    gat_errs = check_gat(device)
+    gat_step_launches, gat_step_s, gat_peak = gat_step(device)
+    for k in gat_attention.launches:
+        gat_attention.launches[k] = 0
+    gat_bench, _ = run_script("bench_gat", [])
+    shutil.rmtree(MEASURE, ignore_errors=True)
+    log(f"  {time.time() - t:.1f} s; attention launches of the timing "
+        f"{gat_attention.launches}")
 
     kernels = []
     for direction, line in (("fwd", 39), ("bwd", 80)):
@@ -2814,6 +2999,32 @@ def main():
                              or k.startswith(f"chain_{direction}")}
                          for d, r in epi_timing.items()},
         })
+    for direction, n_kernels in (("fwd", 1), ("bwd", 3)):
+        rows = {f"{r['set']} {r['K']}x{r['F']}": r
+                for r in gat_bench["rows"]}
+        head = rows["qry 4x256"]
+        kernels.append({
+            "name": f"gat_attn_{direction}",
+            "route": "cuda",
+            "source": "gmeta_tpu_torch/csrc/gat_attention.cu",
+            # the JAX package has no GAT
+            "replaces": None,
+            "kernels_a_call": n_kernels,
+            "launches_per_meta_step": gat_step_launches[direction],
+            "max_abs_err_over_scale": max(
+                v for e in gat_errs.values() for k, v in e.items()
+                if (k == "o") == (direction == "fwd")),
+            "ms": head[f"{direction}_ms"],
+            "bound_ms": head[f"{direction}_bound_ms"],
+            "bound_by": head[f"{direction}_bound"],
+            "share": head[f"{direction}_share"],
+            "plain_ms": head[f"{direction}_plain_ms"],
+            "shape": "16 x 16 x 1024, 4 x 256 heads, float32",
+            "by_set_heads": {
+                k: {x: r[f"{direction}_{x}"]
+                    for x in ("ms", "bound_ms", "share", "plain_ms")}
+                for k, r in rows.items()},
+        })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"slice": {
         "fit_s": fit_s, "fit_theta_sha256": fit_sha256,
@@ -2826,6 +3037,8 @@ def main():
         "result": dataclasses.asdict(result), "auto": auto7,
         "modes": modes, "cli": cli,
         "mesh": mesh, "measure": measure12, "calibrate": calibrate13,
+        "gat": {"errors": gat_errs, "step_s": gat_step_s,
+                "peak_gb": gat_peak, "launches": gat_step_launches},
         "card": card}}))
     log(card)
     print(json.dumps({"ok": True, "device": {

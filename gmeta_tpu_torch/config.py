@@ -8,7 +8,9 @@ five presets reproduce the README recipes (G-Meta/README.md:66-179).
 
 The fields, defaults and presets are those of the JAX package's config, so a
 flag means the same thing to both packages; every field's feature runs in
-the port.
+the port. The port alone adds the last fields: `arch` picks the
+architecture, G-Meta's GCN (the JAX package's only one) or the GAT of
+models/gat.py, whose widths follow.
 """
 
 from __future__ import annotations
@@ -104,11 +106,26 @@ class Config:
                                         # op that produced a NaN instead of the
                                         # (counted) NaN-skip guard
 
+    # --- architecture (the port only; the JAX package runs the GCN) ---
+    arch: str = "gcn"                   # 'gcn': G-Meta's GCN (models/
+                                        # gcn.py, depth h); 'gat':
+                                        # models/gat.py, three GAT layers
+                                        # (Velickovic et al.'s PPI widths
+                                        # by default); validate() refuses
+                                        # any other name
+    gat_heads: int = 4                  # heads of GAT layers 1 and 2
+    gat_hidden: int = 256               # features a head there (concatenated)
+    gat_out_heads: int = 6              # heads of GAT layer 3 (averaged)
+    gat_out_dim: int = 121              # features a head there: the embedding
+
     @property
     def labels_num(self) -> int:
         raise RuntimeError("labels_num is dataset-dependent; use build_model_config")
 
-    def validate(self) -> "Config":
+    def validate(self, mesh_tasks: int = 0, mesh_edges: int = 0) -> "Config":
+        """Checks the fields; `mesh_tasks` and `mesh_edges` are the run's
+        task-DP and edge-engine ranks (run/train.py's flags), which a GAT
+        refuses."""
         assert self.task_setup in ("Disjoint", "Shared"), self.task_setup
         if self.task_setup == "Shared" and self.n_way != Config.n_way:
             import warnings
@@ -123,6 +140,25 @@ class Config:
         assert self.update_step >= 1 and self.update_step_test >= 1
         if self.link_pred_mode:
             assert self.task_setup == "Shared", "link prediction uses the Shared setup"
+        if self.arch not in ("gcn", "gat"):
+            raise ValueError(f"arch {self.arch!r} is no architecture of the "
+                             f"port: 'gcn' or 'gat'")
+        if self.arch == "gat":
+            missing = [what for refused, what in (
+                (self.agg == "dense", "a dense aggregation (agg='dense'): "
+                 "the attention runs on the CSR path only"),
+                (self.dtype != "float32", f"dtype {self.dtype!r}: its "
+                 "kernels are float32 only"),
+                (self.link_pred_mode, "link prediction: it has a node head "
+                 "only"),
+                (not self.first_order, "second-order MAML: the attention's "
+                 "backward is first order"),
+                (mesh_edges > 0, "the edge engine (--mesh_edges)"),
+                (mesh_tasks > 0, "task-DP (--mesh_tasks)")) if refused]
+            if missing:
+                raise ValueError("arch='gat' has no " + "; no ".join(missing))
+            assert min(self.gat_heads, self.gat_hidden, self.gat_out_heads,
+                       self.gat_out_dim) >= 1
         return self
 
 
@@ -130,7 +166,17 @@ def build_model_config(cfg: Config, input_dim: int, labels_num: int):
     """Synthesise the layer spec exactly like the reference (train.py:67-75):
     h GraphConv layers (depth tied to hop count) then a Linear head; LinkPred
     doubles the head's input via endpoint-pair concat (learner.py:85,165-168).
+    With arch='gat', the three ("GATConv", (fan_in, heads, width, concat,
+    skip)) layers of models/gat.py then the Linear head. `cfg` may be the
+    JAX package's Config, which has no `arch`: a GCN.
     """
+    if getattr(cfg, "arch", "gcn") == "gat":
+        K, F = cfg.gat_heads, cfg.gat_hidden
+        return (("GATConv", (input_dim, K, F, True, False)),
+                ("GATConv", (K * F, K, F, True, True)),
+                ("GATConv", (K * F, cfg.gat_out_heads, cfg.gat_out_dim,
+                             False, False)),
+                ("Linear", (cfg.gat_out_dim, labels_num)))
     layers = [("GraphConv", (input_dim, cfg.hidden_dim))]
     for _ in range(cfg.h - 1):
         layers.append(("GraphConv", (cfg.hidden_dim, cfg.hidden_dim)))

@@ -163,7 +163,11 @@ def agg_for(split, device, layer_spec=None, dtype: str = "float32") -> str:
     shorter changes from call to call.
 
     On any other device, `split.suggested_agg`: the JAX package's rule,
-    so that the CPU resolves `auto` as the JAX package does."""
+    so that the CPU resolves `auto` as the JAX package does.
+
+    A GAT (models/gat.py) has no dense path: "sized" on every device."""
+    if layer_spec and layer_spec[0][0] == "GATConv":
+        return "sized"
     if torch.device(device).type != "cuda":
         return split.suggested_agg
     P = max(split.P_spt, split.P_qry)

@@ -54,7 +54,8 @@ from torch.utils.checkpoint import checkpoint
 
 from gmeta_tpu_torch.data.pack import SubgraphSet, TaskBatch
 from gmeta_tpu_torch.meta.protonet import proto_loss_qry, proto_loss_spt
-from gmeta_tpu_torch.models.gcn import GCN, forward, init_params, precompute
+from gmeta_tpu_torch.models import module_for
+from gmeta_tpu_torch.models.gcn import GCN
 from gmeta_tpu_torch.parallel.collectives import all_reduce_flat, broadcast_
 from gmeta_tpu_torch.parallel.dp import shard_batch
 from gmeta_tpu_torch.utils.device import resolve_device
@@ -106,6 +107,9 @@ def make_inner_loop(layer_spec: Sequence[Tuple[str, tuple]],
       extra forwards cost time. Remat is off by default.
     Only meta-training (grad mode on, theta requiring grad) checkpoints;
     evaluation keeps nothing either way."""
+
+    model = module_for(layer_spec)
+    forward, precompute = model.forward, model.precompute
 
     def inner_loop(params, task: TaskBatch, feats: torch.Tensor):
         T = task.spt.node_gid.shape[0]
@@ -298,7 +302,8 @@ class MetaLearner:
         self.task_chunk = task_chunk
         self.mesh = mesh
         gen = torch.Generator().manual_seed(seed)
-        self.model = GCN(init_params(gen, layer_spec)).to(self.device)
+        self.model = GCN(module_for(layer_spec).init_params(
+            gen, layer_spec)).to(self.device)
         if mesh is not None:
             broadcast_(self.params, mesh.world)
         self.opt_state = adam_init(self.params)
@@ -325,10 +330,17 @@ class MetaLearner:
     def set_params(self, params, opt_state=None):
         """Load theta (e.g. from convert.params_from_jax or a checkpoint)
         and either restart Adam or, given `opt_state` as a mapping of
-        AdamState's fields (numpy or tensors), load its state."""
+        AdamState's fields (numpy or tensors), load its state. Raises where
+        theta's leaves are not the model's, in number or shape."""
+        params = [torch.as_tensor(v) for v in params]
+        want = [tuple(p.shape) for p in self.params]
+        got = [tuple(v.shape) for v in params]
+        if got != want:
+            raise ValueError(f"theta has leaves of shapes {got}; the model "
+                             f"{self.layer_spec} has {want}")
         with torch.no_grad():
             for p, v in zip(self.params, params):
-                p.copy_(torch.as_tensor(v))
+                p.copy_(v)
         if opt_state is None:
             self.opt_state = adam_init(self.params)
             return

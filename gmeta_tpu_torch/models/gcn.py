@@ -88,9 +88,9 @@ def init_params(generator: torch.Generator,
 
 class GCN(nn.Module):
     """The classifier's parameters theta as a module: one Parameter per
-    entry of the flat (W, b, W, b, ...) layout. The computation is the
-    functional `forward`, called at theta or at the inner loop's fast
-    weights."""
+    entry of the flat (W, b, W, b, ...) layout (or models/gat.py's). The
+    computation is the model's functional `forward`, called at theta or at
+    the inner loop's fast weights."""
 
     def __init__(self, params):
         super().__init__()
@@ -208,18 +208,27 @@ def forward(params, sg: SubgraphSet, feats: torch.Tensor,
         if collect is not None:
             collect.append(y)
         if last:
-            # center readout: flat slots bin*P + i index each task's own
-            # (B*P, H) rows
-            h = h.reshape(T, B * P, fan_out)
-            centers = sg.centers.long()
+            h = readout(h.reshape(T, B * P, fan_out), sg, link_pred)
+    return head(h, params[idx], params[idx + 1], compute_dtype)
 
-            def take(col):
-                return torch.gather(
-                    h, 1, centers[..., col:col + 1].expand(-1, -1, fan_out))
-            h = torch.cat([take(0), take(1)], dim=-1) if link_pred \
-                else take(0)
 
-    w, b = params[idx], params[idx + 1]
+def readout(h: torch.Tensor, sg: SubgraphSet,
+            link_pred: bool) -> torch.Tensor:
+    """The centres' rows (T, S, H) of the last layer's (T, B*P, H): flat
+    slots bin*P + i index each task's own rows; both endpoints' rows
+    joined (T, S, 2H) under link prediction."""
+    H = h.shape[-1]
+    centers = sg.centers.long()
+
+    def take(col):
+        return torch.gather(h, 1, centers[..., col:col + 1].expand(-1, -1, H))
+    return torch.cat([take(0), take(1)], dim=-1) if link_pred else take(0)
+
+
+def head(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+         compute_dtype=torch.float32) -> torch.Tensor:
+    """The Linear head's float32 logits h @ w.T + b, w (out, in) shared or
+    (T, out, in) per task."""
     logits = torch.matmul(h.float(),
                           w.to(compute_dtype).float().transpose(-1, -2))
     return logits + _bias(b.float(), 3)

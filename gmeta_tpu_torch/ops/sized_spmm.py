@@ -93,24 +93,32 @@ class SizedGraph(NamedTuple):
 
 
 def _csr(key: torch.Tensor, val: torch.Tensor, live: torch.Tensor,
-         N: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Row pointers over keys [0, N) and `val` grouped by key. A stable sort
-    keeps each row's edges in edge order; dead edges take key N, after
-    every row."""
+         N: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Row pointers over keys [0, N), `val` grouped by key, and the order
+    (each entry's edge). A stable sort keeps each row's edges in edge
+    order; dead edges take key N, after every row."""
     key, order = torch.sort(torch.where(live, key, N), stable=True)
     row_ptr = torch.searchsorted(key, torch.arange(N + 1, device=key.device))
-    return row_ptr.to(torch.int32), val[order].to(torch.int32)
+    return row_ptr.to(torch.int32), val[order].to(torch.int32), order
 
 
 def sized_graph(edge_src: torch.Tensor, edge_dst: torch.Tensor,
-                edge_mask: torch.Tensor, B: int, P: int) -> SizedGraph:
+                edge_mask: torch.Tensor, B: int, P: int,
+                positions: bool = False):
     """Both CSRs of the (..., E) packed edge lists of data/pack.py (leading
     dims are tasks), built on their device with no host sync. They hold
     what `densify` adds up: each edge with a non-zero mask once (masks are
     {0, 1}; a duplicate edge is two entries), its source clamped into its
     destination's bin as `densify` clamps it. Edges with mask 0, such as
     the pad edges (src 0, dst B*P-1), are left out, not weighted by 0, so a
-    NaN in a row they name cannot reach the output."""
+    NaN in a row they name cannot reach the output.
+
+    With `positions`, (the SizedGraph, pos_t): for each entry of the
+    forward CSR, the position of the same edge in the transposed CSR
+    (int32, one per edge slot), which a backward that walks the transposed
+    CSR hands to one that walks the forward CSR (ops/gat_attention.py).
+    It costs a scatter and a gather over the edge slots, which the GCN,
+    calling without it, does not pay."""
     n_lead = math.prod(edge_dst.shape[:-1])
     dst = edge_dst.reshape(n_lead, -1).long()
     src = edge_src.reshape(n_lead, -1).long()
@@ -120,9 +128,14 @@ def sized_graph(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     src, dst = (src + base).reshape(-1), (dst + base).reshape(-1)
     live = edge_mask.reshape(-1) != 0
     N = n_lead * B * P
-    row_ptr, col = _csr(dst, src, live, N)
-    row_ptr_t, col_t = _csr(src, dst, live, N)
-    return SizedGraph(row_ptr, col, row_ptr_t, col_t)
+    row_ptr, col, order = _csr(dst, src, live, N)
+    row_ptr_t, col_t, order_t = _csr(src, dst, live, N)
+    graph = SizedGraph(row_ptr, col, row_ptr_t, col_t)
+    if not positions:
+        return graph
+    pos_t = torch.empty_like(order_t)
+    pos_t[order_t] = torch.arange(order_t.numel(), device=order_t.device)
+    return graph, pos_t[order].to(torch.int32)
 
 
 def sized_plain(row_ptr: torch.Tensor, col: torch.Tensor,

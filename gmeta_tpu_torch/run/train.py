@@ -815,7 +815,7 @@ def main(argv=None):
         v = getattr(args, f.name, None)
         if v is not None:
             setattr(cfg, f.name, v)
-    cfg.validate()
+    cfg.validate(mesh_tasks=args.mesh_tasks, mesh_edges=args.mesh_edges)
 
     if not (args.mesh_tasks or args.mesh_edges):
         device = resolve_device(args.device)

@@ -204,6 +204,27 @@ def epilogue_bound(rows, H, direction, itemsize=4, bias_elems=0):
             "operations" if t_ops >= t_bytes else "bytes", nbytes)
 
 
+def attention_bound(rows, edges, K, F, direction):
+    """The least time the card could take for GAT's attention
+    (ops/gat_attention.py) over `rows` rows with `edges` in-edges, K heads
+    of F float32 features, in ms, and what bounds it: forward, zst (z, s,
+    t) read, o and the log-sum-exp written, the CSR read, or 2 (edges +
+    rows) K F operations (the weighted sums, self terms included);
+    backward, zst, o, the log-sum-exp and o's gradient read, zst's gradient
+    written, the CSR read, or twice the operations. The same count as the
+    benchmark's (benchmark/models/gat.py)."""
+    ld, csr = K * F + 2 * K, 4.0 * (rows + 1 + edges)
+    if direction == "fwd":
+        nbytes = 4.0 * rows * (ld + K * F + K) + csr
+        ops = 2.0 * (edges + rows) * K * F
+    else:
+        nbytes = 4.0 * rows * (2 * ld + 2 * K * F + K) + csr
+        ops = 4.0 * (edges + rows) * K * F
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_PEAK
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", nbytes)
+
+
 def dense_bound(S, P, H, dtype):
     """The least time for S products (P, P) @ (P, H), in ms, and what
     bounds it: 2 S P^2 H operations at the dtype's peak (float32 outside

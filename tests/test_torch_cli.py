@@ -35,8 +35,21 @@ def _main_cfg(monkeypatch, argv):
     return got.value.cfg
 
 
+# The port's own fields, after the JAX package's: the architecture
+# (config.py `model` and the GAT's widths), which the JAX package lacks.
+PORT_ONLY = [("arch", "str", "gcn"), ("gat_heads", "int", 4),
+             ("gat_hidden", "int", 256), ("gat_out_heads", "int", 6),
+             ("gat_out_dim", "int", 121)]
+
+
 def _fields(cfg):
-    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    """The values of the JAX package's Config fields; of a port Config,
+    whose own fields must then hold their defaults."""
+    if isinstance(cfg, config.Config):
+        assert [(n, getattr(cfg, n)) for n, _, _ in PORT_ONLY] == \
+            [(n, d) for n, _, d in PORT_ONLY]
+    return {f.name: getattr(cfg, f.name)
+            for f in dataclasses.fields(jconfig.Config)}
 
 
 def test_reference_flags_are_counted():
@@ -91,12 +104,13 @@ def test_help_lists_every_field_and_no_dead_flag():
 
 
 def test_config_fields_match_jax():
-    """Same field names in the same order, same types and defaults."""
+    """Same field names in the same order, same types and defaults, then
+    the port's own fields."""
     got = [(f.name, f.type, f.default)
            for f in dataclasses.fields(config.Config)]
     want = [(f.name, f.type, f.default)
             for f in dataclasses.fields(jconfig.Config)]
-    assert got == want
+    assert got == want + PORT_ONLY
 
 
 @pytest.mark.parametrize("preset", sorted(jconfig.PRESETS))
