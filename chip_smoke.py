@@ -22,22 +22,26 @@ Phases; any failure raises and the script exits non-zero:
                 128 features, 15 classes, 1000-node subgraph cap) and its
                 episodes (192 train tasks, 48 val and 48 test), built with
                 the port's numpy host layer.
-  5. timing   — both kernels at this run's arxiv query batch (72 bins per
-                task x the meta-step's tasks, P = 1024, the batch's real
-                edges), H = 128 and 256, float32, after checking that the
-                CSRs hold densify's edges and degrees: kernel, plain
-                version, torch.sparse.mm of the same CSR (cuSPARSE) and
-                torch.bmm over the dense blocks (what agg="dense" runs),
-                the last two yardsticks only; medians of CUDA-event times
-                over 20 launches, beside the least time the card could take
-                for this data: reading the x rows the edges name and the
-                int32 indices once and writing the output once, or the
-                2 x nnz x H operations of the edges, whichever is longer.
-                (b) the epilogue kernels at arxiv's query and support
-                shapes (32 x 37 or 8 x 1024 x 256), float32 and bf16: bit
+  5. timing   — both kernels at this run's arxiv query batch as the
+                CSR path runs it: the meta-step's tasks, each task's live
+                slots of its bins of P = 1024 repacked into one bin of M
+                rows (data/repack.py, M from the host's bin fills), the
+                batch's real edges, H = 128 and 256, float32, after
+                checking that the CSRs hold densify's edges of the slot
+                layout and each live slot's degrees at its row: kernel,
+                plain version, torch.sparse.mm of the same CSR (cuSPARSE)
+                and torch.bmm over the slot layout's dense blocks (what
+                agg="dense" runs), the last two yardsticks only; medians
+                of CUDA-event times over 20 launches, beside the least
+                time the card could take for this data: reading the x
+                rows the edges name and the int32 indices once and
+                writing the T x M output rows once, or the 2 x nnz x H
+                operations of the edges, whichever is longer.
+                (b) the epilogue kernels at the batch's repacked query and
+                support rows (T x 1 x M x 256), float32 and bf16: bit
                 for bit their plain versions, and the wrapper the model
                 calls bit for bit autograd of the chain (out, g_x, g_b);
-                at the query shape their times beside their bound (the
+                at the query rows their times beside their bound (the
                 function's bytes over 3.35 TB/s) and the chain's.
   6. cuda=cpu — at a small size, one train_step on cuda (kernels) equals
                 the same step on cpu (plain versions) from the same params.
@@ -208,8 +212,10 @@ Phases; any failure raises and the script exits non-zero:
                 its bound at width T * H.
   15. gat     — GAT's attention kernels (ops/gat_attention.py,
                 csrc/gat_attention.cu) at the gat_ppi.pool cell's set
-                shapes: (a) at 16 tasks x 16 bins (query) and x 6 bins
-                (support) of 1024 slots, 586 live, the cell's real edges,
+                shapes as the CSR path runs them: (a) 16 tasks x 16 bins
+                (query) and x 6 bins (support) of 1024 slots, 586 live,
+                repacked into one bin of M rows a task (9,376 and 3,520;
+                bench_gat.packed_graph), the cell's real edges,
                 heads of 4 x 256 and 6 x 121: the wrapper `attend` and
                 the autograd Function on the card against `fwd_plain` and
                 `bwd_plain` (one forward and three backward launches a
@@ -221,8 +227,8 @@ Phases; any failure raises and the script exits non-zero:
                 set to 0 just before and read just after: 3 layers x
                 (2 U + 2) forwards and x (U + 2) backwards of 3 kernels;
                 its seconds and peak memory; (c) bench_gat: each
-                direction's kernels timed at both sets and widths beside
-                `attention_bound` and the plain versions.
+                direction's kernels timed at both repacked sets and widths
+                beside `attention_bound` and the plain versions.
 
 Phase 2 builds the CUDA kernels (nvcc) and the host extraction engine (g++)
 at once. Prints phase 11's parity JSON line, phase 14's bench JSON line,
@@ -481,9 +487,10 @@ def check_epilogue_at_scale(x, n, b, g):
     return seen
 
 
-def time_epilogue(device, shapes=((32, 37, 1024, 256), (32, 8, 1024, 256))):
-    """Phase 5(b): the epilogue kernels at arxiv's query and support shapes
-    (32 tasks x 37 or 8 bins of 1024 slots, hidden 256), float32 and bf16:
+def time_epilogue(device, shapes):
+    """Phase 5(b): the epilogue kernels at `shapes`, phase 5's query and
+    support sets as the CSR path runs them (T tasks x one bin of M rows,
+    hidden 256: `epilogue_shapes`), float32 and bf16:
     first `check_epilogue_at_scale`, then at the query shape their times
     beside their bound (`epilogue_bound`, the function's own bytes; the
     backward's with the bias's sum) and the PyTorch chain they replace:
@@ -560,6 +567,14 @@ def time_epilogue(device, shapes=((32, 37, 1024, 256), (32, 8, 1024, 256))):
     return rows_out
 
 
+def epilogue_shapes(batch, H=256):
+    """The (T, 1, M, H) rows of a host batch's query and support sets
+    repacked (data/repack.py), query first."""
+    from gmeta_tpu_torch.data.repack import bin_rows, live_counts
+    return tuple((sg.bin_fill.shape[0], 1, bin_rows(live_counts(sg.bin_fill)),
+                  H) for sg in (batch.qry, batch.spt))
+
+
 def arxiv_data(seed=7):
     """Phase 4: the arxiv-scale synthetic graph and its episodes (the sizes
     of bench.py's arxiv shape)."""
@@ -571,36 +586,49 @@ def arxiv_data(seed=7):
 
 
 def time_kernels(batch, device):
-    """Phase 5: both kernels at the main path's query batch and data."""
+    """Phase 5: both kernels at the main path's query batch and data,
+    repacked as the CSR path runs it (`MetaLearner._decode`: each task's
+    live slots in one bin of M rows, M from the host's bin fills)."""
     import torch
+    from gmeta_tpu_torch.data.repack import bin_rows, live_counts, repack
     from gmeta_tpu_torch.meta.maml import batch_to
     from gmeta_tpu_torch.models.gcn import precompute
     from gmeta_tpu_torch.ops import sized_spmm as sp
     from gmeta_tpu_torch.ops.spmm import degrees_from_dense, densify
 
-    qry = batch_to(batch, device).qry
-    T, B, P = qry.node_gid.shape
-    S, N = T * B, T * B * P
+    slot = batch_to(batch, device).qry
+    T, B, P = slot.node_gid.shape
+    live = live_counts(batch.qry.bin_fill)
+    M = bin_rows(live)
+    qry = repack(slot, M, live)
+    S, N = T, T * M
     torch.cuda.synchronize()
     t0 = time.time()
     graph = precompute(qry, agg="sized").sized
     torch.cuda.synchronize()
     build_ms = (time.time() - t0) * 1e3
-    # a check only: the CSRs hold densify's edges, and their degrees
-    A = densify(qry.edge_src, qry.edge_dst, qry.edge_mask, B, P).view(S, P, P)
+    # a check only: the CSRs hold densify's edges of the slot layout, and
+    # each live slot's degrees at its repacked row, in order
+    A = densify(slot.edge_src, slot.edge_dst, slot.edge_mask, B, P).view(
+        T * B, P, P)
     nnz = int(graph.row_ptr[-1])
     assert nnz == int(graph.row_ptr_t[-1]) == int(qry.edge_mask.sum()) \
         == int(A.sum(dtype=torch.float64)), nnz
-    assert torch.equal(graph.degrees().view(S, P).float(),
-                       degrees_from_dense(A))
-    assert torch.equal((graph.row_ptr_t[1:] - graph.row_ptr_t[:-1])
-                       .view(S, P).float(), A.sum(dim=-2))
-    live_rows = float(qry.bin_fill.double().sum())
-    live_sq = float((qry.bin_fill.double() ** 2).sum())
-    log(f"  S={S} bins, P={P}, mean fill {live_rows / N:.4f}, nnz {nnz} "
-        f"({100 * nnz / live_sq:.3f}% of the live blocks); CSRs built in "
+    on_slot = slot.node_mask.view(T, B * P) > 0
+    on_row = torch.arange(M, device=device) < torch.as_tensor(
+        live, device=device)[:, None]
+    for got, want in (
+            (graph.degrees(), degrees_from_dense(A)),
+            (graph.row_ptr_t[1:] - graph.row_ptr_t[:-1], A.sum(dim=-2))):
+        got = got.view(T, M).float()
+        assert torch.equal(got[on_row], want.view(T, B * P)[on_slot])
+        assert not got[~on_row].any()
+    log(f"  {T} tasks of {B} bins x {P} slots repacked into {M} rows "
+        f"(row share {M / (B * P):.4f}, live share "
+        f"{float(live.sum()) / N:.4f}), nnz {nnz}; CSRs built in "
         f"{build_ms:.1f} ms ({8 * (N + 1 + qry.edge_mask.numel()) / 1e6:.1f}"
-        f" MB) where densify's A is {A.numel() * 4 / 1e9:.2f} GB")
+        f" MB) where densify's A of the slot layout is "
+        f"{A.numel() * 4 / 1e9:.2f} GB")
     g = torch.Generator(device=device).manual_seed(0)
     rows = {}
     for direction in ("fwd", "bwd"):
@@ -611,14 +639,15 @@ def time_kernels(batch, device):
             row_ptr, col[:nnz], torch.ones(nnz, device=device), size=(N, N),
             check_invariants=False)
         for H in (128, 256):
-            x = torch.randn(S, P, H, device=device, generator=g)
+            x = torch.randn(S, M, H, device=device, generator=g)
+            x_slot = torch.randn(T * B, P, H, device=device, generator=g)
             got = sp.launch(direction, graph, x)
             want = sp.sized_plain(row_ptr, col, x)
             e = (got - want).abs().max().item()
             rtol, atol = TOLS["float32"]
             torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
             torch.testing.assert_close(      # the yardstick's function
-                torch.sparse.mm(sparse, x.view(N, H)).view(S, P, H), want,
+                torch.sparse.mm(sparse, x.view(N, H)).view(S, M, H), want,
                 rtol=rtol, atol=atol)
             del got, want
             row = rows[(direction, H)] = dict(timed_row(
@@ -626,7 +655,7 @@ def time_kernels(batch, device):
                 lambda: sp.sized_plain(row_ptr, col, x),
                 lambda: torch.sparse.mm(sparse, x.view(N, H)),
                 nnz, H, read_rows, N), max_abs_err=e,
-                dense_bmm_ms=cuda_ms(lambda: torch.bmm(At, x)))
+                dense_bmm_ms=cuda_ms(lambda: torch.bmm(At, x_slot)))
             log(f"  {direction} H={H}: kernel {row['ms']:.3f} ms "
                 f"({row['gb_per_s']:.0f} GB/s of the bound's "
                 f"{row['bound_gb']:.3f} GB; "
@@ -635,11 +664,11 @@ def time_kernels(batch, device):
                 f"{row['library_ms']:.3f} ms, torch.bmm "
                 f"{row['dense_bmm_ms']:.3f} ms, bound {row['bound_ms']:.3f} "
                 f"ms ({row['bound_by']}), max abs err {e:.3g}")
-            del x
+            del x, x_slot
         del sparse
     del A
     torch.cuda.empty_cache()
-    return rows, f"S={S} P={P} nnz={nnz}"
+    return rows, f"T={T} M={M} (from B={B} P={P}) nnz={nnz}"
 
 
 def cuda_equals_cpu(device):
@@ -2543,7 +2572,8 @@ def gat_set(rng, T, B, E_real, E, S):
 def check_gat(device):
     """Phase 15(a): the wrapper `attend` and the autograd Function on the
     card against `fwd_plain` and `bwd_plain` at the cell's set shapes
-    (bench_gat.SHAPES: 16 tasks x 16 or 6 bins x 1024 slots) and both
+    (bench_gat.SHAPES: 16 tasks x 16 or 6 bins x 1024 slots, repacked
+    into one bin of M rows a task as the CSR path runs them) and both
     head widths (4 x 256, 16-byte lanes; 6 x 121, one float a lane): one
     forward and three backward launches a call; o, and the gradient of
     zst's z, s and t, within rtol 1e-4 and atol 2e-5 of each tensor's
@@ -2559,8 +2589,8 @@ def check_gat(device):
     from gmeta_tpu_torch.scripts.bench_gat import HEADS, SHAPES, packed_graph
     errs = {}
     for name, (T, B, P, live, edges) in SHAPES.items():
-        graph = packed_graph(T, B, P, live, edges, device)
-        N = T * B * P
+        graph = packed_graph(T, B, P, live, edges, device, repacked=True)
+        N = graph.sized.row_ptr.numel() - 1
         for K, F in HEADS:
             KF = K * F
             gen = torch.Generator(device=device).manual_seed(K)
@@ -2587,8 +2617,8 @@ def check_gat(device):
                     msg=lambda m: f"{name} {K}x{F} {what}: {m}")
                 row[what] = float((got - ref).abs().max()) / scale
             errs[f"{name} {K}x{F}"] = row
-            log(f"  {name} {T}x{B}x{P} heads {K}x{F}: max abs error over "
-                f"scale {row}")
+            log(f"  {name} {T}x{B}x{P} as {N} rows, heads {K}x{F}: max "
+                f"abs error over scale {row}")
             del zst, g, x, o, dzst, want_o, lse, want
             torch.cuda.empty_cache()
     return errs
@@ -2598,8 +2628,10 @@ def gat_step(device):
     """Phase 15(b): one GAT meta-step of the gat_ppi.pool cell's
     configuration (PRESETS["tissue_ppi"] with arch 'gat' at the published
     widths, 16 tasks, float32, the CSR path) on a batch of its geometry
-    (GAT_SETS) and PPI's feature rows, after a warm step, launch counts set
-    to 0 just before it and read just after. Each of the 3 layers runs
+    (GAT_SETS: a host batch, so the step runs it repacked, which the
+    repack's tally shows) and PPI's feature rows, after a warm step, launch
+    counts set to 0 just before it and read just after. Each of the 3
+    layers runs
     2 U + 2 attention forwards (support: the curve's and U inner; query:
     the curve's after each of U steps and before them) and U + 2
     backwards (U inner gradients; the meta-gradient through the query and
@@ -2609,6 +2641,7 @@ def gat_step(device):
     import torch
 
     from gmeta_tpu_torch.config import PRESETS, build_model_config
+    from gmeta_tpu_torch.data import repack
     from gmeta_tpu_torch.data.pack import TaskBatch
     from gmeta_tpu_torch.meta.maml import MetaLearner
     from gmeta_tpu_torch.ops import gat_attention as ga
@@ -2631,6 +2664,7 @@ def gat_step(device):
     torch.cuda.reset_peak_memory_stats()
     for k in ga.launches:
         ga.launches[k] = 0
+    rows = repack.tally["rows"]
     t0 = time.time()
     loss = learner.train_step(batch)["meta_loss"].item()
     torch.cuda.synchronize()
@@ -2639,10 +2673,13 @@ def gat_step(device):
     U, layers = cfg.update_step, len(spec) - 1
     want = {"fwd": layers * (2 * U + 2), "bwd": layers * 3 * (U + 2)}
     assert math.isfinite(loss) and got == want, (loss, got, want)
+    rows = repack.tally["rows"] - rows
+    assert rows == sum(cfg.task_num * repack.bin_rows(
+        repack.live_counts(sg.bin_fill)) for sg in batch), rows
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"  one meta-step of 16 tasks: {seconds:.3f} s "
-        f"({cfg.task_num / seconds:.2f} tasks/s), launches {got}, peak "
-        f"{peak:.2f} GB, meta-loss {loss:.6f}")
+        f"({cfg.task_num / seconds:.2f} tasks/s), launches {got}, "
+        f"{rows} rows repacked, peak {peak:.2f} GB, meta-loss {loss:.6f}")
     del learner, batch
     torch.cuda.empty_cache()
     return got, seconds, peak
@@ -2725,7 +2762,8 @@ def main():
     t = phase("5 kernel timing at the arxiv query shape")
     batch = next(tr_ds.batches(task_num, shuffle=False))
     timing, qry_shape = time_kernels(batch, device)
-    epi_timing = time_epilogue(device)
+    epi_shapes = epilogue_shapes(batch)
+    epi_timing = time_epilogue(device, epi_shapes)
     log(f"  {time.time() - t:.1f} s")
 
     t = phase("6 one train_step: cuda == cpu")
@@ -2993,7 +3031,7 @@ def main():
             "launches_by_phase": {p: c[direction]
                                   for p, c in epi_by_phase.items()},
             "launches_per_meta_step": epi_per_step[direction],
-            "shape": "32 x 37 x 1024 x 256",
+            "shape": " x ".join(map(str, epi_shapes[0])),
             "by_dtype": {d: {k: v for k, v in r.items()
                              if k.startswith(direction)
                              or k.startswith(f"chain_{direction}")}
@@ -3019,7 +3057,8 @@ def main():
             "bound_by": head[f"{direction}_bound"],
             "share": head[f"{direction}_share"],
             "plain_ms": head[f"{direction}_plain_ms"],
-            "shape": "16 x 16 x 1024, 4 x 256 heads, float32",
+            "shape": f"16 x 16 x 1024 repacked into {head['rows']} "
+                     f"rows, 4 x 256 heads, float32",
             "by_set_heads": {
                 k: {x: r[f"{direction}_{x}"]
                     for x in ("ms", "bound_ms", "share", "plain_ms")}

@@ -25,7 +25,11 @@ Per shape the JSON carries:
   counts dense's aggregations as torch.bmm at 2 S P^2 H, and the sized
   kernel's calls, which it does not see, at that same figure, the TPU
   kernel's own cost estimate (ops/spmm.py `count_aggregation`), so dense
-  and sized are held to the same work; useful_flops counts every
+  and sized are held to the same work: both are counted on the packed
+  slot layout (a batch of tensors, which the learner runs as given),
+  while the timed sized runs are repacked over live rows only
+  (data/repack.py), so there mfu credits pad rows' work the step no
+  longer does, as the JAX bench credits it; useful_flops counts every
   aggregation at 2 nnz H (its live edges) instead, and pad_waste is the
   dense slots over the real edges per task;
 - mfu: flops_per_step x steps / seconds over the card's peak (bf16 on
@@ -322,7 +326,7 @@ def run_shape(name, s, *, agg=None, device=None, steps=MEASURE_STEPS,
     `init` a flat theta (numpy, the JAX layout) in place of seed 0's;
     `dtype` the compute dtype (the bench's is bf16); `profile_top` how
     many kernels the profile lists."""
-    from gmeta_tpu_torch.meta.maml import MetaLearner
+    from gmeta_tpu_torch.meta.maml import MetaLearner, batch_to, take_tasks
     from gmeta_tpu_torch.utils import cardtime
 
     device = resolve_device(device)
@@ -357,7 +361,10 @@ def run_shape(name, s, *, agg=None, device=None, steps=MEASURE_STEPS,
     compile_s = time.time() - t0
 
     ml.set_params(theta0)
-    flops, useful, agg_flops = count_flops(lambda: run(idx_mat[:1]), agg)
+    # a batch already on the device is not repacked: the slot layout's work
+    first = batch_to(take_tasks(data.tasks, idx_mat[0]), device)
+    flops, useful, agg_flops = count_flops(lambda: ml.train_step(first), agg)
+    del first
 
     ml.set_params(theta0)
     cardtime.sync(device)

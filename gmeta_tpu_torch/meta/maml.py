@@ -41,25 +41,30 @@ pool and window modes:
   Python loop of `train_step` that decodes one step's T tasks at a time on
   the device, with no host sync, and returns the per-step metrics stacked
   along a leading axis.
+- on the CSR path (agg="sized") every decoded step runs repacked, each
+  task's live slots in one bin (data/repack.py), so no layer computes the
+  pad slots; the row count comes from bin fills the host already holds
+  (the pools' and windows' own), never from the device.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from gmeta_tpu_torch.data.pack import SubgraphSet, TaskBatch
+from gmeta_tpu_torch.data.repack import bin_rows, live_counts, repack_batch
 from gmeta_tpu_torch.meta.protonet import proto_loss_qry, proto_loss_spt
 from gmeta_tpu_torch.models import module_for
 from gmeta_tpu_torch.models.gcn import GCN
 from gmeta_tpu_torch.parallel.collectives import all_reduce_flat, broadcast_
-from gmeta_tpu_torch.parallel.dp import shard_batch
+from gmeta_tpu_torch.parallel.dp import local_tasks
 from gmeta_tpu_torch.utils.device import resolve_device
-from gmeta_tpu_torch.utils.metrics import NO_SPAN, grad, span, within
+from gmeta_tpu_torch.utils.metrics import grad, span
 
 
 class InnerAux(NamedTuple):
@@ -272,10 +277,35 @@ def take_tasks(batch: TaskBatch, sl) -> TaskBatch:
     return TaskBatch(spt=one(batch.spt), qry=one(batch.qry))
 
 
+def _host_live(batch: TaskBatch):
+    """The tasks' (support, query) live slot counts (T,), where the batch
+    is the host's (numpy); None for tensors, which a learner takes as
+    decoded already (on a device, reading them would wait for it)."""
+    fills = [sg.bin_fill for sg in batch]
+    if not all(isinstance(f, np.ndarray) for f in fills):
+        return None
+    return tuple(live_counts(f) for f in fills)
+
+
+def _take_live(live, rows):
+    """The tasks `rows` (host) of per-task live counts, or None."""
+    if live is None:
+        return None
+    return tuple(n[rows] for n in live)
+
+
 def _add_task_axis(task: TaskBatch) -> TaskBatch:
     def one(sg):
         return SubgraphSet(*(None if x is None else x[None] for x in sg))
     return TaskBatch(spt=one(task.spt), qry=one(task.qry))
+
+
+class Window(NamedTuple):
+    """A window buffer on the device (MetaLearner.put_buffer) and its
+    steps' (support, query) live counts on the host, each (K, T), or None
+    where the buffer came from the device."""
+    words: torch.Tensor
+    live: Optional[Tuple[np.ndarray, np.ndarray]]
 
 
 class MetaLearner:
@@ -314,12 +344,19 @@ class MetaLearner:
         self._test_inner = make_inner_loop(
             layer_spec, proto_classes, update_lr, update_step_test,
             first_order=first_order, compute_dtype=compute_dtype, agg=agg)
+        # the CSR path runs over repacked sets (data/repack.py); the dense
+        # path multiplies a (P, P) block per bin and keeps the slot layout
+        self._repacks = agg == "sized"
         self._feats = None
         self._pool = None         # full-form device-resident pool
         self._cpool = None        # compact device-resident pool leaves
         self._cmeta = None        # (spt_meta, qry_meta) of the compact pool
         self._codec = None        # window codec (K, T, spt_meta, qry_meta)
         self._copy_stream = None  # CUDA stream of pinned window copies
+        # host live counts (spt, qry) of the full-form and compact pools,
+        # each (N,)
+        self._pool_live = self._clive = None
+        self._in_call = False     # inside a K-step call's steps
 
     # -- host-facing API -----------------------------------------------------
 
@@ -363,21 +400,46 @@ class MetaLearner:
     def train_step(self, batch: TaskBatch):
         """One meta-step on a batch of T tasks. Returns device tensors
         {"meta_loss", "accs" (update_step+1,), "nan_skip"} without waiting
-        for the device (with a mesh, the collectives may wait)."""
-        if within("step"):   # a K-step call's step, which decoded the batch
+        for the device (with a mesh, the collectives may wait). A host
+        batch (numpy) runs repacked on the CSR path (`_decode`); a batch of
+        tensors runs in the layout it has."""
+        if self._in_call:    # a K-step call's step, which decoded the batch
             return self._train_step(batch)
-        with span("step"):
-            return self._train_step(batch, span("decode"))
+        return self._step(batch, _host_live(batch))
 
-    def _train_step(self, batch: TaskBatch, decode=NO_SPAN):
-        """The meta-step: the batch's copy to the device (in the span
-        `decode`), the inner loop, then the meta-gradient and the
-        update."""
-        with decode:
-            T = batch.spt.node_gid.shape[0]
-            if self.mesh is not None:
-                batch = shard_batch(batch, self.mesh)
-            batch = batch_to(batch, self.device)
+    def _step(self, batch: TaskBatch, live):
+        """One meta-step, its batch decoded in the span `decode`."""
+        with span("step"):
+            with span("decode"):
+                batch = self._decode(batch, live)
+            return self._train_step(batch)
+
+    def _decode(self, batch: TaskBatch, live, shard: bool = True):
+        """A batch as the model runs it: with a mesh and `shard`, this
+        rank's tasks; on the device; and on the CSR path, where `live` (the
+        tasks' support and query live counts) is known on the host,
+        repacked into one bin per task (data/repack.py). M is the whole
+        batch's, so every rank and every task chunk takes the same. Every
+        entry point gives `live`; a batch of tensors passed to
+        `train_step` has none and runs in its slot layout, which only the
+        tests that hold the two layouts to each other and bench.py's FLOP
+        count (the slot layout's work) use."""
+        rows = None
+        if live is not None and self._repacks:
+            rows = tuple(bin_rows(n) for n in live)
+        if shard and self.mesh is not None:
+            sl = local_tasks(batch.spt.node_gid.shape[0], self.mesh.task,
+                             self.mesh.t)
+            batch, live = take_tasks(batch, sl), _take_live(live, sl)
+        batch = batch_to(batch, self.device)
+        return batch if rows is None else repack_batch(batch, rows, live)
+
+    def _train_step(self, batch: TaskBatch):
+        """The meta-step on a decoded batch: the inner loop, then the
+        meta-gradient and the update."""
+        T = batch.spt.node_gid.shape[0]
+        if self.mesh is not None:
+            T *= self.mesh.task      # the losses are divided by the global T
         params = self.params
         grads = [torch.zeros_like(p) for p in params]
         loss = torch.zeros((), device=self.device)
@@ -419,15 +481,20 @@ class MetaLearner:
 
     def _train_steps(self, make, items) -> dict:
         """One meta-step per item of the iterable, in order, on the batch
-        `make(item)` (its `decode` span). Returns the per-step metrics
-        stacked along a leading axis (the JAX package's scanned `ms`),
-        without waiting for the device."""
+        and host live counts `make(item)` gives, decoded in its `decode`
+        span. Returns the per-step metrics stacked along a leading axis
+        (the JAX package's scanned `ms`), without waiting for the
+        device."""
         ms = []
-        for item in items:
-            with span("step"):
-                with span("decode"):
-                    batch = make(item)
-                ms.append(self.train_step(batch))
+        self._in_call = True
+        try:
+            for item in items:
+                with span("step"):
+                    with span("decode"):
+                        batch = self._decode(*make(item))
+                    ms.append(self.train_step(batch))
+        finally:
+            self._in_call = False
         return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
     def _rows(self, idx) -> torch.Tensor:
@@ -441,16 +508,22 @@ class MetaLearner:
         """Place a stacked task pool (leading axis = number of tasks) on the
         device once, in the form `batch_to` gives; train_step_from_pool and
         train_steps_from_pool then transfer only task indices."""
+        self._pool_live = _host_live(pool)
         self._pool = batch_to(pool, self.device)
 
     def train_step_from_pool(self, idxs):
-        return self.train_step(take_tasks(self._pool, self._rows(idxs)))
+        return self._step(take_tasks(self._pool, self._rows(idxs)),
+                          _take_live(self._pool_live, np.asarray(idxs)))
 
     def train_steps_from_pool(self, idx_mat):
         """idx_mat.shape[0] meta-steps over the resident pool, row k of
         idx_mat naming step k's tasks. Returns stacked per-step metrics."""
-        return self._train_steps(functools.partial(take_tasks, self._pool),
-                                 self._rows(idx_mat))
+        idx = np.asarray(idx_mat, np.int64)
+        rows = self._rows(idx)
+        return self._train_steps(
+            lambda k: (take_tasks(self._pool, rows[k]),
+                       _take_live(self._pool_live, idx[k])),
+            range(idx.shape[0]))
 
     # -- window wire format --------------------------------------------------
     #
@@ -599,6 +672,7 @@ class MetaLearner:
         spt, m_spt = self._encode_set_leaves(pool.spt)
         qry, m_qry = self._encode_set_leaves(pool.qry)
         self._cmeta = (m_spt, m_qry)
+        self._clive = _host_live(pool)
         self._cpool = tuple(tuple(torch.from_numpy(l).to(self.device)
                                   for l in leaves) for leaves in (spt, qry))
 
@@ -610,14 +684,17 @@ class MetaLearner:
         """idx_mat.shape[0] meta-steps over the compact resident pool, one
         step's T tasks gathered and decoded at a time."""
         (spt, qry), (m_spt, m_qry) = self._cpool, self._cmeta
+        idx = np.asarray(idx_mat, np.int64)
+        rows = self._rows(idx)
 
-        def batch(rows):
+        def batch(k):
             return TaskBatch(
-                spt=self._build_set([l.index_select(0, rows) for l in spt],
-                                    m_spt),
-                qry=self._build_set([l.index_select(0, rows) for l in qry],
-                                    m_qry))
-        return self._train_steps(batch, self._rows(idx_mat))
+                spt=self._build_set([l.index_select(0, rows[k])
+                                     for l in spt], m_spt),
+                qry=self._build_set([l.index_select(0, rows[k])
+                                     for l in qry], m_qry)), \
+                _take_live(self._clive, idx[k])
+        return self._train_steps(batch, range(idx.shape[0]))
 
     # -- host-windowed pool --------------------------------------------------
 
@@ -628,11 +705,17 @@ class MetaLearner:
         learner's copy stream: the compute stream waits for the copy through
         an event, and the returned event completes when the host buffer may
         be refilled. Otherwise the copy has finished on return and the event
-        is None."""
+        is None. The device buffer comes as a `Window`, with its steps'
+        live counts where the buffer is the host's (read before the copy
+        starts), so that train_steps_from_window repacks it."""
         self._codec = codec
         src = torch.as_tensor(buf)
+        live = None
+        if src.device.type == "cpu":
+            live = tuple(live_counts(leaves[-2])
+                         for leaves in self._window_leaves(src))
         if self.device.type != "cuda" or not src.is_pinned():
-            return src.to(self.device), None
+            return Window(src.to(self.device), live), None
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
         compute = torch.cuda.current_stream(self.device)
@@ -645,28 +728,30 @@ class MetaLearner:
         # allocated on the copy stream, read on the compute stream: keep the
         # allocator from reusing it before the compute stream is done
         dev.record_stream(compute)
-        return dev, done
+        return Window(dev, live), done
 
     def put_window(self, chunk: TaskBatch, task_num: int):
         """encode_window + put_buffer in one call (inline path)."""
         return self.put_buffer(*self.encode_window(chunk, task_num))[0]
 
-    def train_steps_from_window(self, buf_dev, task_num: int):
+    def train_steps_from_window(self, window: Window, task_num: int):
         """The K meta-steps of a window buffer already on the device
-        (put_buffer), decoded one step at a time."""
+        (put_buffer's `Window`), decoded one step at a time."""
         _, _, m_spt, m_qry = self._codec
-        spt, qry = self._window_leaves(buf_dev)
+        spt, qry = self._window_leaves(window.words)
+        live = window.live
 
         def batch(k):
             return TaskBatch(
                 spt=self._build_set([l[k] for l in spt], m_spt),
-                qry=self._build_set([l[k] for l in qry], m_qry))
+                qry=self._build_set([l[k] for l in qry], m_qry)), \
+                _take_live(live, k)
         return self._train_steps(batch, range(spt[0].shape[0]))
 
     def finetune_batch(self, batch: TaskBatch, params=None) -> torch.Tensor:
         """(T, update_step_test+1) accuracy curves for a batch of tasks,
         finetuned from `params` (default: current theta)."""
-        batch = batch_to(batch, self.device)
+        batch = self._decode(batch, _host_live(batch), shard=False)
         p = tuple(x.detach() for x in
                   (self.params if params is None else params))
         curves = [self._test_inner(p, take_tasks(batch, sl), self._feats)[1]

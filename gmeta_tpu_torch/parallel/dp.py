@@ -3,16 +3,13 @@
 Counterpart of gmeta_tpu/parallel/dp.py. There, the meta-batch's leading
 task axis is sharded over the mesh's 'task' axis with the parameters
 replicated, and XLA inserts the meta-gradient psum. Here each rank takes
-its own contiguous slice of the task axis (`shard_batch`: rank t of the
+its own contiguous slice of the task axis (`local_tasks`: rank t of the
 task axis holds tasks [t*T/N, (t+1)*T/N), the block JAX's P("task") gives
 device t), and the learner sums the gradients over the task group as one
 flat buffer (`collectives.all_reduce_flat`), see meta/maml.py.
 """
 
 from __future__ import annotations
-
-from gmeta_tpu_torch.data.pack import SubgraphSet, TaskBatch
-from gmeta_tpu_torch.parallel.mesh import Mesh
 
 
 def local_tasks(n_tasks: int, n_groups: int, index: int) -> slice:
@@ -23,13 +20,3 @@ def local_tasks(n_tasks: int, n_groups: int, index: int) -> slice:
                          f"{n_groups} task groups")
     n = n_tasks // n_groups
     return slice(index * n, (index + 1) * n)
-
-
-def shard_batch(batch: TaskBatch, mesh: Mesh) -> TaskBatch:
-    """This rank's tasks of a TaskBatch (numpy or torch, leading axis =
-    tasks)."""
-    sl = local_tasks(batch.spt.node_gid.shape[0], mesh.task, mesh.t)
-
-    def one(sg):
-        return SubgraphSet(*(None if x is None else x[sl] for x in sg))
-    return TaskBatch(spt=one(batch.spt), qry=one(batch.qry))

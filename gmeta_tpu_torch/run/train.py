@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from gmeta_tpu_torch.config import Config, PRESETS, build_model_config
+from gmeta_tpu_torch.data import repack
 from gmeta_tpu_torch.data.pack import TaskBatch
 from gmeta_tpu_torch.data.pipeline import (MetaDataset, agg_for,
                                            edges_per_slot)
@@ -339,8 +340,11 @@ class Trainer:
             n_tasks)[:steps * self.cfg.task_num]
         return order.reshape(steps, self.cfg.task_num)
 
-    def _log_window(self, epoch, start, n_steps, m, dt, mean_edges):
-        """The train_window record of a window's metrics (on the host)."""
+    def _log_window(self, epoch, start, n_steps, m, dt, mean_edges, rows):
+        """The train_window record of a window's metrics (on the host);
+        `rows`, the window's part of the repack tally (data/repack.py),
+        gives its row_share (rows run / slots packed) and live_share (live
+        nodes / rows run) where its steps were repacked."""
         accs = m["accs"][-1]
         tasks_per_s = n_steps * self.cfg.task_num / dt
         self.metrics.echo_line(
@@ -351,7 +355,10 @@ class Trainer:
             acc_curve=accs.tolist(), meta_loss=float(m["meta_loss"][-1]),
             nan_skip=int(m["nan_skip"].sum()),
             tasks_per_s=round(tasks_per_s, 2),
-            edges_per_s=round(tasks_per_s * mean_edges, 1), rss_gb=rss_gb())
+            edges_per_s=round(tasks_per_s * mean_edges, 1), rss_gb=rss_gb(),
+            **({"row_share": round(rows["rows"] / rows["slots"], 4),
+                "live_share": round(rows["live"] / rows["rows"], 4)}
+               if rows["slots"] else {}))
 
     def _fit_device_pool(self, t_start: float, mean_edges: float) -> FitResult:
         """Epoch loop over a pre-packed task pool: the epoch's shuffled
@@ -415,7 +422,9 @@ class Trainer:
                 chunk = idx_mat[start:start + window]
                 prof = (_start_trace(self.device)
                         if chunks_done == prof_chunk else None)
+                before = dict(repack.tally)
                 m = self.learner.train_steps_from_compact(chunk)
+                rows = _tally_since(before)
                 m = {k: v.cpu().numpy() for k, v in m.items()}  # sync point
                 if prof is not None:
                     self._stop_trace(prof)
@@ -424,7 +433,8 @@ class Trainer:
                 win_t = time.time()
                 n_steps = int(chunk.shape[0])
                 self.global_step += n_steps
-                self._log_window(epoch, start, n_steps, m, dt, mean_edges)
+                self._log_window(epoch, start, n_steps, m, dt, mean_edges,
+                                 rows)
                 steps_since_save += n_steps
                 if (cfg.checkpoint_every_steps
                         and steps_since_save >= cfg.checkpoint_every_steps):
@@ -499,20 +509,22 @@ class Trainer:
                     q.put(e)
 
             def consume(p, epoch=epoch):
-                start, n_steps, (m, snap), landed, t0, t1 = p
+                start, n_steps, (m, snap), landed, t0, t1, rows = p
                 if landed is not None:
                     landed.synchronize()          # window N only, not N+1
                 m = {k: v.numpy() for k, v in m.items()}
                 dt = max(clock.seconds(t0, t1), 1e-9)
                 self.global_step += n_steps
-                self._log_window(epoch, start, n_steps, m, dt, mean_edges)
+                self._log_window(epoch, start, n_steps, m, dt, mean_edges,
+                                 rows)
                 if snap is not None:
                     self._save(epoch, batch_in_epoch=start + n_steps,
                                params=snap[0], opt_state=snap[1])
 
             th = threading.Thread(target=produce, daemon=True)
             th.start()
-            pending = None     # (start, n_steps, host copies, event, marks)
+            # (start, n_steps, host copies, event, marks, tally counts)
+            pending = None
             prof = None
             mark = clock.mark()
             try:
@@ -528,8 +540,10 @@ class Trainer:
                     dev, copied = self.learner.put_buffer(buf, codec)
                     if slot is not None:
                         free.put((slot, copied))
+                    before = dict(repack.tally)
                     m = self.learner.train_steps_from_window(
                         dev, cfg.task_num)
+                    rows = _tally_since(before)
                     end = clock.mark()
                     steps_since_save += n_steps
                     snap = None
@@ -547,7 +561,8 @@ class Trainer:
                         if windows_done == prof_window + 1:
                             self._stop_trace(prof)
                             prof = None
-                    pending = (start, n_steps, copies, landed, mark, end)
+                    pending = (start, n_steps, copies, landed, mark, end,
+                               rows)
                     mark = end
                     windows_done += 1
                 if pending is not None:
@@ -594,6 +609,11 @@ class Trainer:
             global_step=self.global_step)
         self.metrics.log("fit_result", **dataclasses.asdict(result))
         return result
+
+
+def _tally_since(before: dict) -> dict:
+    """The repack tally's counts added since `before`, a copy of it."""
+    return {k: v - before[k] for k, v in repack.tally.items()}
 
 
 def _wait(mark) -> None:

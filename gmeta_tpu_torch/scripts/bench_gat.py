@@ -8,9 +8,10 @@ versions:
 A set is drawn as the benchmark's generator draws one: T tasks of B bins
 of P slots with `live` real slots a bin, every live slot an in-edge and
 the rest of the task's real edges at random destinations, sources in the
-same bin. Each layer's heads run on random zst: ms medians of single
-launches (CUDA events; the backward's three kernels as one), the plain
-versions beside. No PyTorch call computes this function, so there is no
+same bin; then repacked as the CSR path runs it (data/repack.py): each
+task's B * live live slots in one bin of M rows. Each layer's heads run
+on random zst over those T * M rows: ms medians of single launches (CUDA
+events; the backward's three kernels as one), the plain versions beside. No PyTorch call computes this function, so there is no
 library column. On the CPU (--device cpu) it runs the plain versions at a
 tiny shape.
 """
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from gmeta_tpu_torch.data.repack import bin_rows
 from gmeta_tpu_torch.ops import gat_attention
 from gmeta_tpu_torch.ops.gat_attention import attn_graph, bwd_plain, fwd_plain
 from gmeta_tpu_torch.scripts.common import finish, fmt, parser, start
@@ -32,8 +34,11 @@ TINY = {"tiny": (2, 2, 32, 20, 60)}
 HEADS = [(4, 256), (6, 121)]     # layers 1-2 and layer 3
 
 
-def packed_graph(T, B, P, live, edges, device, seed=0):
-    """The AttnGraph of T tasks' packed edges (module docstring)."""
+def packed_graph(T, B, P, live, edges, device, seed=0, repacked=False):
+    """The AttnGraph of T tasks' packed edges (module docstring), over
+    their T * B * P slots or, `repacked`, over T bins of M = `bin_rows` of
+    B * live rows, slot i of bin b at row b * live + i: what
+    data/repack.py makes of a set whose every bin holds `live`."""
     g = torch.Generator(device=device).manual_seed(seed)
     first = torch.arange(B * live, device=device)
     first = (first // live * P + first % live).expand(T, -1)
@@ -46,7 +51,10 @@ def packed_graph(T, B, P, live, edges, device, seed=0):
     dst, order = torch.sort(dst, dim=1, stable=True)
     src = torch.gather(src, 1, order)
     mask = torch.ones(T, edges, device=device)
-    return attn_graph(src, dst, mask, B, P)
+    if not repacked:
+        return attn_graph(src, dst, mask, B, P)
+    src, dst = (x // P * live + x % P for x in (src, dst))
+    return attn_graph(src, dst, mask, 1, bin_rows([B * live]))
 
 
 def main(argv=None):
@@ -56,15 +64,15 @@ def main(argv=None):
     cuda = device.type == "cuda"
     rows_out = []
     for name, (T, B, P, live, edges) in (SHAPES if cuda else TINY).items():
-        graph = packed_graph(T, B, P, live, edges, device)
-        N = T * B * P
+        graph = packed_graph(T, B, P, live, edges, device, repacked=True)
+        N = graph.sized.row_ptr.numel() - 1
         for K, F in HEADS if cuda else [(2, 4), (3, 3)]:
             gen = torch.Generator(device=device).manual_seed(K)
             zst = torch.randn(N, K * F + 2 * K, generator=gen, device=device)
             g = torch.randn(N, K * F, generator=gen, device=device)
             o, lse = fwd_plain(graph, zst, K, F)
             row = {"set": name, "T": T, "B": B, "P": P, "live": live,
-                   "edges": edges, "K": K, "F": F}
+                   "rows": N, "edges": edges, "K": K, "F": F}
             for d in ("fwd", "bwd"):
                 bound, what, nbytes = attention_bound(
                     T * B * live, T * edges, K, F, d)

@@ -209,13 +209,6 @@ def span(name: str):
     return _Span(name)
 
 
-def within(name: str) -> bool:
-    """Whether the innermost span this thread is recording is named
-    `name` (never while no profiler is active)."""
-    stack = _tls.stack
-    return bool(stack) and stack[-1].entry[0] == name
-
-
 def grad(outputs, inputs, **kw):
     """`torch.autograd.grad`, under which spans that the autograd engine's
     own threads open (on CUDA the backward runs there) take the caller's

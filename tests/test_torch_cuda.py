@@ -200,10 +200,10 @@ def test_device_decode_equals_cpu_decode(cuda):
     chunk = take_tasks(ds["train"].stacked_pool(), np.arange(8))
     buf, codec = MetaLearner.encode_window(chunk, 4)
     cpu, gpu = _learner(store, "cpu"), _learner(store, cuda)
-    want = cpu._decode_window(cpu.put_buffer(buf, codec)[0])
+    want = cpu._decode_window(cpu.put_buffer(buf, codec)[0].words)
     dev, copied = gpu.put_buffer(torch.from_numpy(buf).pin_memory(), codec)
-    assert copied is not None and dev.is_cuda
-    got = gpu._decode_window(dev)
+    assert copied is not None and dev.words.is_cuda
+    got = gpu._decode_window(dev.words)
     torch.cuda.synchronize()
     assert copied.query()
     for sg, wsg in zip(got, want):
@@ -226,6 +226,59 @@ def test_compact_steps_equal_streaming_steps(cuda):
     assert m["meta_loss"].shape == (2,) and m["accs"].shape == (2, 3)
     for a, b in zip(ml.params, ref.params):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["gcn", "gat"])
+def test_repacked_compact_steps_add_no_sync_and_match_the_slot_layout(
+        cuda, arch):
+    """A compact-pool call repacks each step's sets into one bin per task
+    (data/repack.py) without a device-to-host sync, and agrees within
+    float32 rounding with the slot layout: the same pool resident as
+    device tensors, whose live counts the host does not hold, so that
+    nothing is repacked there."""
+    from gmeta_tpu_torch.data import repack
+    from gmeta_tpu_torch.meta.maml import batch_to
+    store, ds = _tiny()
+    pool = ds["train"].stacked_pool()
+    idx_mat = np.random.RandomState(2).permutation(12)[:8].reshape(2, 4)
+    spec = build_model_config(
+        Config(hidden_dim=16, arch=arch, gat_heads=2, gat_hidden=8,
+               gat_out_heads=3, gat_out_dim=5), store.feat_dim, 3)
+
+    def learner():
+        ml = MetaLearner(spec, 3, update_lr=0.05, meta_lr=1e-3,
+                         update_step=2, update_step_test=2, seed=5,
+                         agg="sized", device=cuda)
+        ml.set_features(store.features)
+        return ml
+    ml, ref = learner(), learner()
+    ml.set_task_pool_compact(pool)
+    ref.set_task_pool(batch_to(pool, cuda))
+    start = [p.detach().clone() for p in ml.params]
+    # the first step builds the kernels and warms the libraries
+    ml.train_steps_from_compact(idx_mat[:1])
+    ref.train_steps_from_pool(idx_mat[:1])
+    torch.cuda.synchronize()
+    before = dict(repack.tally)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = ml.train_steps_from_compact(idx_mat[1:])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counted = {k: repack.tally[k] - before[k] for k in before}
+    assert 0 < counted["live"] <= counted["rows"] < counted["slots"]
+    want = ref.train_steps_from_pool(idx_mat[1:])
+    torch.testing.assert_close(m["meta_loss"], want["meta_loss"],
+                               rtol=1e-5, atol=1e-6)
+    for i, (a, b) in enumerate(zip(ml.params, ref.params)):
+        if i == len(start) - 1:
+            # the head bias's meta-gradient is rounding noise that Adam
+            # normalises: it moves by up to meta_lr a step either way
+            for p in (a, b):
+                assert (p - start[i]).abs().max() <= 2 * 1e-3 * 1.001
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5,
+                                       msg=f"theta {i}")
 
 
 def test_pinned_host_window_fit_equals_compact_fit(cuda):

@@ -500,3 +500,27 @@ def test_bench_gat_main_writes_its_json(tmp_path):
     deg = g.sized.degrees().view(T, B, P)
     assert int(deg.sum()) == T * edges
     assert bool((deg[..., :live] > 0).all()) and int(deg[..., live:].sum()) == 0
+
+
+def test_bench_gat_times_the_repacked_layout():
+    """scripts/bench_gat.py's repacked graph holds the slot layout's edges
+    moved as data/repack.py moves them: each task's live slots in one bin
+    of `bin_rows` rows, bin by bin, the rest empty."""
+    from gmeta_tpu_torch.data.repack import bin_rows
+    from gmeta_tpu_torch.scripts import bench_gat
+    T, B, P, live, edges = bench_gat.TINY["tiny"]
+    cpu = torch.device("cpu")
+    slot = bench_gat.packed_graph(T, B, P, live, edges, cpu)
+    rep = bench_gat.packed_graph(T, B, P, live, edges, cpu, repacked=True)
+    M = bin_rows([B * live])
+    assert rep.sized.row_ptr.numel() == T * M + 1
+    n = B * live
+    for direction in ("fwd", "bwd"):
+        (rp, rc), (sp, sc) = rep.sized.csr(direction), slot.sized.csr(direction)
+        deg, want = (rp[1:] - rp[:-1]).view(T, M), \
+            (sp[1:] - sp[:-1]).view(T, B, P)[..., :live].reshape(T, n)
+        assert torch.equal(deg[:, :n], want) and not deg[:, n:].any()
+        nnz = int(sp[-1])
+        moved = sc[:nnz].long() // (B * P) * M \
+            + sc[:nnz].long() % (B * P) // P * live + sc[:nnz].long() % P
+        assert torch.equal(rc[:nnz].long(), moved)

@@ -119,7 +119,7 @@ def test_decoding_matches_jax_and_batch_to(chunks, jax_learner, case):
                      update_step_test=1, device="cpu")
     dev, copied = ml.put_buffer(buf, codec)
     assert copied is None
-    got = ml._decode_window(dev)
+    got = ml._decode_window(dev.words)
     jax_learner._codec = codec
     want = jax_learner._decode_window(jnp.asarray(buf))
     for name, s, j in ((n, s, j) for sg, jsg in zip(got, want)
@@ -128,7 +128,7 @@ def test_decoding_matches_jax_and_batch_to(chunks, jax_learner, case):
         np.testing.assert_array_equal(s.numpy(), np.asarray(j), name)
     # one step at a time, as the train loops decode: batch_to of the packed
     # batch, but for the pad edges' sources (their dst's bin base)
-    spt, qry = ml._window_leaves(dev)
+    spt, qry = ml._window_leaves(dev.words)
     for k in range(K):
         ref = batch_to(_take(chunk, slice(k * T, (k + 1) * T)), "cpu")
         for leaves, meta, rsg in ((spt, codec[2], ref.spt),

@@ -25,7 +25,7 @@ from gmeta_tpu.ops import spmm as jspmm
 from gmeta_tpu.ops.pallas_spmm import sized_reference
 from gmeta_tpu_torch import bench
 from gmeta_tpu_torch.config import Config, build_model_config
-from gmeta_tpu_torch.data import replicas
+from gmeta_tpu_torch.data import replicas, repack
 from gmeta_tpu_torch.data.synthetic import synthetic_disjoint
 from gmeta_tpu_torch.meta.maml import MetaLearner
 from gmeta_tpu_torch.ops import sized_spmm as sp
@@ -325,8 +325,9 @@ def test_launches_per_meta_step_counts_a_bf16_step(monkeypatch, feat, track):
                      track_curve=track, compute_dtype=torch.bfloat16)
     ml.set_features(store.features)
     batch = next(ds["train"].batches(2, shuffle=False))
-    set_of = {int(np.prod(getattr(batch, s).node_gid.shape)): s
-              for s in ("spt", "qry")}
+    # each set runs repacked, T bins of its largest live count
+    set_of = {2 * repack.bin_rows(repack.live_counts(
+        getattr(batch, s).bin_fill)): s for s in ("spt", "qry")}
     assert len(set_of) == 2               # the sets' rows tell them apart
     seen = {"spt": {}, "qry": {}}
     launch = sp.launch
