@@ -266,6 +266,7 @@ try:
                                                 combine_bound, cuda_ms,
                                                 cuda_ms_b2b, epilogue_bound,
                                                 gather_bound, rounding_bound)
+    from gmeta_tpu_torch.utils.metrics import counted
 except ImportError as e:
     raise SystemExit(f"chip_smoke: the gmeta_tpu_torch package is not "
                      f"beside this script ({e})")
@@ -688,7 +689,7 @@ def cuda_equals_cpu(device):
     batch = next(ds["train"].batches(4, shuffle=False))
     out = {}
     for dev in (device, torch.device("cpu")):
-        before = dict(sp.launches)
+        launched = counted()
         ml = MetaLearner(spec, 3, update_lr=0.05, meta_lr=1e-3,
                          update_step=3, update_step_test=3, seed=1,
                          agg="sized", device=dev)
@@ -696,7 +697,7 @@ def cuda_equals_cpu(device):
         m = ml.train_step(batch)
         out[dev.type] = (m["meta_loss"].item(), m["accs"].cpu().numpy(),
                          [p.detach().cpu().numpy() for p in ml.params],
-                         {k: sp.launches[k] - before[k] for k in before})
+                         launched.of(sp.LAUNCHES))
     (lc, ac, pc, nc), (lh, ah, ph, nh) = out["cuda"], out["cpu"]
     assert all(v > 0 for v in nc.values()) and not any(nh.values()), (nc, nh)
     np.testing.assert_allclose(lc, lh, rtol=1e-5)
@@ -858,8 +859,7 @@ def run_mode(cfg, store, ds, mode, kill_after_windows=0):
         trainer.learner.train_steps_from_compact = killing
     start = (trainer.start_epoch, trainer.start_batch, trainer.global_step)
     fresh_card()
-    for k in sp.launches:
-        sp.launches[k] = 0
+    launched = counted()
     t0 = time.time()
     result = None
     try:
@@ -868,7 +868,7 @@ def run_mode(cfg, store, ds, mode, kill_after_windows=0):
         assert kill_after_windows
     torch.cuda.synchronize()
     out = {"mode": mode, "fit_s": time.time() - t0,
-           "launches": dict(sp.launches), "start": start,
+           "launches": launched.of(sp.LAUNCHES), "start": start,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "entered_host_window": bool(hit), "result": result,
            "theta": [p.detach().cpu().numpy() for p in trainer.learner.params],
@@ -926,15 +926,14 @@ def fit_modes(cfg, store, ds):
     mid-epoch resume. Returns (summary for the JSON line, launches summed
     over every fit)."""
     import numpy as np
+    from gmeta_tpu_torch.ops import sized_spmm as sp
     order = ["streaming", "compact", "host_window",
              "host_window", "compact", "streaming"]
     runs = {m: [] for m in MODES}
-    launches = {"fwd": 0, "bwd": 0}
+    launched = counted()
     for mode in order:
         r = run_mode(cfg, store, ds, mode)
         runs[mode].append(r)
-        for k in launches:
-            launches[k] += r["launches"][k]
         log(f"  {mode}: fit {r['fit_s']:.1f} s, warm "
             f"{r.get('tasks_per_s', float('nan')):.2f} tasks/s, peak "
             f"{r['peak_gb']:.2f} GB, launches {r['launches']}"
@@ -978,9 +977,6 @@ def fit_modes(cfg, store, ds):
     log(f"  kill after window 1 and resume at epoch 0 batch {window}: "
         f"theta vs the straight compact fit (max abs, max rel) "
         f"{resume_diff}; resumed fit launches {resumed['launches']}")
-    for r in (killed, resumed):
-        for k in launches:
-            launches[k] += r["launches"][k]
     shutil.rmtree(ck, ignore_errors=True)
 
     summary = {"order": order, "steps": steps, "theta_diff": diffs,
@@ -995,7 +991,7 @@ def fit_modes(cfg, store, ds):
             summary[m]["pool"] = [r["pool"] for r in rs]
         summary[m]["tasks_per_s_mean"] = statistics.mean(
             r["tasks_per_s"] for r in rs)
-    return summary, launches
+    return summary, launched.of(sp.LAUNCHES)
 
 
 # ---- phase 9: the CLI from disk: prepare, extract, remat -------------------
@@ -1178,18 +1174,6 @@ def spy_main(argv):
     return result, trainer
 
 
-def zero_counts():
-    """Every kernel launch count (both entry points and the combine kernel)
-    and the collectives' seconds and calls, set to 0."""
-    from gmeta_tpu_torch.ops import sized_spmm as sp
-    from gmeta_tpu_torch.parallel import collectives
-    for counts in (sp.launches, sp.csr_launches, sp.combine_launches,
-                   *sp.launches_by_dtype.values(), collectives.seconds,
-                   collectives.calls):
-        for k in counts:
-            counts[k] = 0
-
-
 def cli_fit(remat, metrics_path, device, extra=()):
     """9d: one main() run from the prepared directory on the card, with the
     Trainer it built. Returns its numbers. `extra` adds flags (phase 10a:
@@ -1204,17 +1188,17 @@ def cli_fit(remat, metrics_path, device, extra=()):
     if metrics_path.exists():
         metrics_path.unlink()
     fresh_card()
-    zero_counts()
+    launched = counted()
     t0 = time.time()
     result, trainer = spy_main(argv)
     torch.cuda.synchronize()
     out = {"remat": remat, "main_s": time.time() - t0,
-           "launches": dict(sp.launches),
+           "launches": launched.of(sp.LAUNCHES),
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "result": dataclasses.asdict(result)}
     assert trainer.device.type == device.type and trainer.agg == "sized"
     assert trainer.cfg.remat_inner == remat
-    assert not any(sp.csr_launches.values()), sp.csr_launches
+    assert not any(launched.of(sp.CSR_LAUNCHES).values()), out
     out["theta"] = [p.detach().cpu().numpy() for p in trainer.learner.params]
     out["theta_sha256"] = theta_digest(out["theta"])
     recs = [json.loads(line) for line in open(metrics_path)]
@@ -1243,8 +1227,7 @@ def second_order_steps(store, ds, cfg, device, chunk=8):
     spec = build_model_config(cfg, store.feat_dim, cfg.n_way)
     batch = next(ds["train"].batches(cfg.task_num, shuffle=False))
     runs = {True: [], False: []}
-    launches = {"fwd": 0, "bwd": 0}
-    thetas = {}
+    thetas, launched = {}, counted()
     for remat in (True, False, False, True):
         ml = MetaLearner(spec, cfg.n_way, update_lr=cfg.update_lr,
                          meta_lr=cfg.meta_lr, update_step=cfg.update_step,
@@ -1253,10 +1236,7 @@ def second_order_steps(store, ds, cfg, device, chunk=8):
                          agg="sized", task_chunk=chunk, device=device)
         ml.set_features(store.features)
         fresh_card()
-        before = dict(sp.launches)
         seconds = step_seconds(ml, batch)
-        for k in launches:
-            launches[k] += sp.launches[k] - before[k]
         runs[remat].append({"s": seconds, "peak_gb":
                             torch.cuda.max_memory_allocated() / 1e9})
         thetas.setdefault(remat, [p.detach().cpu().numpy()
@@ -1272,7 +1252,7 @@ def second_order_steps(store, ds, cfg, device, chunk=8):
         f"{[round(r['peak_gb'], 2) for r in runs[False]]} GB; theta diff "
         f"{diff}")
     return {"chunk": chunk, "remat": runs[True], "plain": runs[False],
-            "theta_diff": diff}, launches
+            "theta_diff": diff}, launched.of(sp.LAUNCHES)
 
 
 def cli_phase(store4, ds4, device):
@@ -1352,19 +1332,20 @@ def edge_fit(argv, metrics_path, device):
     if metrics_path.exists():
         metrics_path.unlink()
     fresh_card()
-    zero_counts()
+    launched = counted()
     t0 = time.time()
     result, trainer = spy_main(argv + ["--mesh_edges", "1", "--metrics_path",
                                        str(metrics_path)])
     torch.cuda.synchronize()
-    out = {"main_s": time.time() - t0, "csr_launches": dict(sp.csr_launches),
-           "combine_launches": dict(sp.combine_launches),
+    out = {"main_s": time.time() - t0,
+           "csr_launches": launched.of(sp.CSR_LAUNCHES),
+           "combine_launches": launched.of(sp.COMBINE_LAUNCHES),
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "result": dataclasses.asdict(result), "comm": trainer.comm,
            "theta": [p.detach().cpu().numpy() for p in trainer.engine.params]}
     out["theta_sha256"] = theta_digest(out["theta"])
     assert trainer.engine.device.type == device.type
-    assert not any(sp.launches.values()), sp.launches
+    assert not any(launched.of(sp.LAUNCHES).values()), out
     assert all(v > 0 for v in out["csr_launches"].values()), out
     recs = [json.loads(line) for line in open(metrics_path)]
     steps = [r for r in recs if r["kind"] == "train_step"]
@@ -1630,7 +1611,7 @@ def rank_main(out_path, argv, one_step=False):
     from gmeta_tpu_torch.ops import epilogue as ep
     from gmeta_tpu_torch.ops import sized_spmm as sp
     from gmeta_tpu_torch.parallel import collectives
-    zero_counts()
+    launched = counted()
     t0 = time.time()
     if one_step:
         trainer = one_step_fit(argv)
@@ -1641,11 +1622,11 @@ def rank_main(out_path, argv, one_step=False):
     engine = getattr(trainer, "engine", None)
     params = engine.params if engine is not None else trainer.learner.params
     meta = {"rank": int(os.environ["RANK"]), "main_s": time.time() - t0,
-            "launches": dict(sp.launches),
-            "csr_launches": dict(sp.csr_launches),
-            "epilogue_launches": dict(ep.launches),
-            "seconds": dict(collectives.seconds),
-            "calls": dict(collectives.calls),
+            "launches": launched.of(sp.LAUNCHES),
+            "csr_launches": launched.of(sp.CSR_LAUNCHES),
+            "epilogue_launches": launched.of(ep.LAUNCHES),
+            "seconds": launched.of(collectives.SECONDS),
+            "calls": launched.of(collectives.CALLS),
             "global_step": global_step,
             "comm": getattr(trainer, "comm", None)}
     np.savez(out_path, meta=json.dumps(meta),
@@ -2025,10 +2006,10 @@ def eval_parity(name, device):
 
     rec_agg = parity.record(name)["agg"]
     assert rec_agg != "sized", rec_agg
-    zero_counts()
-    out = parity.eval_from(name, str(RECORDS / f"{name}.ckpt"),
-                           str(REPLICAS), device=device)
-    launches = dict(sp.launches)
+    with counted() as c:
+        out = parity.eval_from(name, str(RECORDS / f"{name}.ckpt"),
+                               str(REPLICAS), device=device)
+    launches = c.of(sp.LAUNCHES)
     assert out["checked"] and out["jax_cpu_acc"] is not None, out["recipe"]
     assert list(out["passes"]) == [rec_agg, "sized"], list(out["passes"])
     assert not any(out["passes"][rec_agg]["launches"].values()), out
@@ -2145,7 +2126,7 @@ def measure_phase():
 
     t0 = time.time()
     shutil.rmtree(MEASURE, ignore_errors=True)
-    zero_counts()
+    launched = counted()
     res, secs = {}, {}
     try:
         res["bench_kernels"], secs["bench_kernels"] = run_script(
@@ -2166,8 +2147,9 @@ def measure_phase():
                                str(TOL_PREFIX)])
     finally:
         shutil.rmtree(MEASURE, ignore_errors=True)
-    launches = {"packed": dict(sp.launches), "csr": dict(sp.csr_launches),
-                "combine": dict(sp.combine_launches)}
+    launches = {"packed": launched.of(sp.LAUNCHES),
+                "csr": launched.of(sp.CSR_LAUNCHES),
+                "combine": launched.of(sp.COMBINE_LAUNCHES)}
     for kind in ("packed", "csr"):
         assert all(launches[kind].values()), launches
     assert launches["combine"]["fwd"] > 0, launches
@@ -2230,15 +2212,16 @@ def proxies(device):
     from gmeta_tpu_torch.scripts import calibrate_replicas as cr
 
     errs = []
-    zero_counts()
-    got = cr.run(list(cr.RECIPE_PROXIES), device, gather=checked_hop(errs))
-    launches = {"csr": dict(sp.csr_launches),
-                "combine": dict(sp.combine_launches)}
-    zero_counts()
-    plain = cr.run(list(cr.RECIPE_PROXIES), device,
-                   gather=lambda pair, h: sp.csr_plain(pair.row_ptr,
-                                                       pair.col, h))
-    assert not any(sp.csr_launches.values()), sp.csr_launches
+    with counted() as c:
+        got = cr.run(list(cr.RECIPE_PROXIES), device,
+                     gather=checked_hop(errs))
+    launches = {"csr": c.of(sp.CSR_LAUNCHES),
+                "combine": c.of(sp.COMBINE_LAUNCHES)}
+    with counted() as c:
+        plain = cr.run(list(cr.RECIPE_PROXIES), device,
+                       gather=lambda pair, h: sp.csr_plain(pair.row_ptr,
+                                                           pair.col, h))
+    assert not any(c.of(sp.CSR_LAUNCHES).values()), c.of(sp.CSR_LAUNCHES)
     graphs = sum(r["graphs"] for r in got.values())
     split = sum(r["split_rows"] for r in got.values())
     assert launches["csr"]["fwd"] == 2 * graphs, (launches, graphs)
@@ -2276,7 +2259,7 @@ def calibrate_phase(device):
     rows, max_err, launches = proxies(device)
     a_s = time.time() - t0
     shutil.rmtree(CAL, ignore_errors=True)
-    zero_counts()
+    launched = counted()
     t1 = time.time()
     try:
         link = calibrate_link.main([
@@ -2287,7 +2270,7 @@ def calibrate_phase(device):
                           / "firstmm_db.json").read_text())
     finally:
         shutil.rmtree(CAL, ignore_errors=True)
-    packed = dict(sp.launches)
+    packed = launched.of(sp.LAUNCHES)
     assert packed["fwd"] > 0 and packed["bwd"] > 0, packed
     launches["packed"] = packed
     (row,) = link
@@ -2370,7 +2353,7 @@ def bench_phase(device):
 
     rtol, atol = TOLS["bfloat16"]
     shapes, launches, arxiv = {}, {"fwd": 0, "bwd": 0}, None
-    by_dtype = {t: {"fwd": 0, "bwd": 0} for t in sp.launches_by_dtype}
+    by_dtype = {t: {"fwd": 0, "bwd": 0} for t in sp.LAUNCHES_BY_DTYPE}
     for name, s in bench.SHAPES.items():
         data = bench.shape_data(name, s)
         meta = bench.REPLICA_META[name]
@@ -2385,11 +2368,11 @@ def bench_phase(device):
             f"bitwise equal to densify_serial with no host sync on "
             f"{n_dense} adjacencies ({time.time() - t0:.1f} s)")
         rec = bench.bench_shape(name, s, device=device, data=data)
-        zero_counts()
-        sized = bench.bench_shape(name, s, agg="sized", device=device,
-                                  data=data)
-        got = dict(sp.launches)
-        split = {t: dict(v) for t, v in sp.launches_by_dtype.items()}
+        with counted() as c:
+            sized = bench.bench_shape(name, s, agg="sized", device=device,
+                                      data=data)
+        got = c.of(sp.LAUNCHES)
+        split = {t: c.of(v) for t, v in sp.LAUNCHES_BY_DTYPE.items()}
         assert got["fwd"] > 0 and got["bwd"] > 0, (name, got)
         assert all(split["bfloat16"].values()), (name, split)
         # layer 1 aggregates first where it does not shrink the width
@@ -2463,12 +2446,12 @@ def shared_phase(arxiv, device):
         return torch.randn(T, B, P, SHARED_H, device=device,
                            generator=g).to(dtype)
 
-    zero_counts()
-    h = draw(SHARED_TASKS[0], torch.float32).requires_grad_(True)
-    out = sp.aggregate_sized_shared(graph, h)
-    out.backward(torch.ones_like(out))
-    torch.cuda.synchronize()
-    launches = dict(sp.launches)
+    with counted() as c:
+        h = draw(SHARED_TASKS[0], torch.float32).requires_grad_(True)
+        out = sp.aggregate_sized_shared(graph, h)
+        out.backward(torch.ones_like(out))
+        torch.cuda.synchronize()
+    launches = c.of(sp.LAUNCHES)
     assert launches == {"fwd": 1, "bwd": 1}, launches
     del h, out
 
@@ -2596,13 +2579,13 @@ def check_gat(device):
             gen = torch.Generator(device=device).manual_seed(K)
             zst = torch.randn(N, KF + 2 * K, generator=gen, device=device)
             g = torch.randn(N, KF, generator=gen, device=device)
-            before = dict(ga.launches)
-            x = zst.clone().requires_grad_()
-            o = ga.attend(graph, x, K, F)
-            (dzst,) = torch.autograd.grad(o, x, g)
-            torch.cuda.synchronize()
-            assert {k: ga.launches[k] - before[k] for k in before} == \
-                {"fwd": 1, "bwd": 3}, (name, K, F, ga.launches, before)
+            with counted() as c:
+                x = zst.clone().requires_grad_()
+                o = ga.attend(graph, x, K, F)
+                (dzst,) = torch.autograd.grad(o, x, g)
+                torch.cuda.synchronize()
+            assert c.of(ga.LAUNCHES) == {"fwd": 1, "bwd": 3}, \
+                (name, K, F, c.of(ga.LAUNCHES))
             want_o, lse = ga.fwd_plain(graph, zst, K, F)
             want = ga.bwd_plain(graph, zst, want_o, lse, g, K, F)
             row = {}
@@ -2662,18 +2645,16 @@ def gat_step(device):
     assert math.isfinite(learner.train_step(batch)["meta_loss"].item())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in ga.launches:
-        ga.launches[k] = 0
-    rows = repack.tally["rows"]
     t0 = time.time()
-    loss = learner.train_step(batch)["meta_loss"].item()
+    with counted() as c:
+        loss = learner.train_step(batch)["meta_loss"].item()
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    got = dict(ga.launches)
+    got = c.of(ga.LAUNCHES)
     U, layers = cfg.update_step, len(spec) - 1
     want = {"fwd": layers * (2 * U + 2), "bwd": layers * 3 * (U + 2)}
     assert math.isfinite(loss) and got == want, (loss, got, want)
-    rows = repack.tally["rows"] - rows
+    rows = c[repack.TALLY["rows"]]
     assert rows == sum(cfg.task_num * repack.bin_rows(
         repack.live_counts(sg.bin_fill)) for sg in batch), rows
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2711,12 +2692,12 @@ def main():
 
     t = phase("2 build")
 
+    epi_mark = counted()
+
     def epi_take():
-        """The epilogue's launches in this process since the last take;
-        sets them to 0."""
-        got = dict(ep.launches)
-        for k in ep.launches:
-            ep.launches[k] = 0
+        """The epilogue's launches in this process since the last take."""
+        nonlocal epi_mark
+        got, epi_mark = epi_mark.of(ep.LAUNCHES), counted()
         return got
 
     def timed(fn, name):
@@ -2776,14 +2757,13 @@ def main():
     assert trainer.device.type == "cuda" and trainer.agg == "sized"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in sp.launches:
-        sp.launches[k] = 0
+    launched = counted()
     epi_take()
     t_fit = time.time()
     result = trainer.fit()
     torch.cuda.synchronize()
     fit_s = time.time() - t_fit
-    main_path = dict(sp.launches)
+    main_path = launched.of(sp.LAUNCHES)
     epi_by_phase = {"7": epi_take()}
     assert all(epi_by_phase["7"].values()), epi_by_phase
     fit_sha256 = theta_digest([p.detach().cpu().numpy()
@@ -2805,12 +2785,11 @@ def main():
     auto7 = auto_trainer(cfg, store, ds)
 
     # one more meta-step on its own: kernel launches per meta-step
-    for k in sp.launches:
-        sp.launches[k] = 0
+    launched = counted()
     epi_take()
     assert math.isfinite(trainer.learner.train_step(batch)["meta_loss"]
                          .item())
-    per_step = dict(sp.launches)
+    per_step = launched.of(sp.LAUNCHES)
     epi_per_step = epi_take()
     assert epi_per_step["fwd"] > 0 and epi_per_step["bwd"] > 0, epi_per_step
     # warm meta-steps, sized kernels vs dense torch.bmm, in turns, each
@@ -2870,7 +2849,7 @@ def main():
     # kernel's count of the phase
     epi_by_phase["10"] = epi_take()
     for meta in mesh["c_tasks"]["ranks"]:
-        for k in ep.launches:
+        for k in ep.LAUNCHES:
             epi_by_phase["10"][k] += meta["epilogue_launches"][k]
     log(f"  {time.time() - t:.1f} s; kernel launches of phase 10: packed "
         f"{mesh_launches}, csr_gather {rect_launches}, combine "
@@ -2918,12 +2897,11 @@ def main():
               "meta-step of its configuration")
     gat_errs = check_gat(device)
     gat_step_launches, gat_step_s, gat_peak = gat_step(device)
-    for k in gat_attention.launches:
-        gat_attention.launches[k] = 0
-    gat_bench, _ = run_script("bench_gat", [])
+    with counted() as c:
+        gat_bench, _ = run_script("bench_gat", [])
     shutil.rmtree(MEASURE, ignore_errors=True)
     log(f"  {time.time() - t:.1f} s; attention launches of the timing "
-        f"{gat_attention.launches}")
+        f"{c.of(gat_attention.LAUNCHES)}")
 
     kernels = []
     for direction, line in (("fwd", 39), ("bwd", 80)):

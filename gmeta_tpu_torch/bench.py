@@ -6,14 +6,15 @@ Counterpart of bench.py (the JAX package's benchmark), with its keys:
     python -m gmeta_tpu_torch.bench [--device cpu] [--out FILE]
 
 Each shape replays the bucket geometry of that recipe's run of record
-(`parity/<recipe>.json`: P/B/E per set, bin fill, aggregation, pool mode)
-on a synthesized packed pool resident on the device, so no host pipeline
-runs in the timed window; a recipe without a record falls back to the
-synthetic-graph path (extraction and packing at whatever buckets result).
-The records ran on a TPU: only their shapes are used here, never their
-times. Every shape runs in bf16 with theta from seed 0, as the JAX bench
-does, first with the record's aggregation and then with agg="sized" where
-the record chose dense, so the packed kernel runs in every shape.
+(`parity/<recipe>.json`: P/B/E per set, bin fill, aggregation) on a
+synthesized packed pool resident on the device in compact form, as the
+Trainer runs it, so no host pipeline runs in the timed window; a recipe
+without a record falls back to the synthetic-graph path (extraction and
+packing at whatever buckets result). The records ran on a TPU: only their
+shapes are used here, never their times. Every shape runs in bf16 with
+theta from seed 0, as the JAX bench does, first with the record's
+aggregation and then with agg="sized" where the record chose dense, so
+the packed kernel runs in every shape.
 
 Per shape the JSON carries:
 - tasks_per_s over one call of `steps` meta-steps (MEASURE_STEPS), ending
@@ -240,7 +241,6 @@ class ShapeData(NamedTuple):
     buckets: dict
     n_out: int
     geometry: str            # "parity_buckets" or "synthetic"
-    compact: bool            # the record's device_task_pool
     pool: int
     data_s: float
 
@@ -278,8 +278,6 @@ def shape_data(name, s, rec=None, pool=POOL, device=None) -> ShapeData:
         feats, tasks, mean_edges, agg = _pool_from_parity(name, s, rec, pool)
         buckets, n_out = dict(rec["buckets"]), REPLICA_META[name]["n_out"]
         geometry = "parity_buckets"
-        compact = bool(rec.get("preset_overrides", {})
-                       .get("device_task_pool", False))
     else:
         from gmeta_tpu_torch.data.pipeline import agg_for
         store, train, n_out = _build_dataset(name, s, pool)
@@ -290,14 +288,13 @@ def shape_data(name, s, rec=None, pool=POOL, device=None) -> ShapeData:
         buckets = dict(P_spt=train.P_spt, B_spt=train.B_spt,
                        E_spt=train.E_spt, P_qry=train.P_qry,
                        B_qry=train.B_qry, E_qry=train.E_qry)
-        geometry, compact = "synthetic", False
+        geometry = "synthetic"
     data = ShapeData(feats, tasks, mean_edges, agg, buckets, n_out,
-                     geometry, compact, pool, time.time() - t0)
+                     geometry, pool, time.time() - t0)
     log(f"# {name}: data {data.data_s:.1f}s [{geometry}] buckets"
         f" spt(P={buckets['P_spt']},B={buckets['B_spt']},"
         f"E={buckets['E_spt']}) qry(P={buckets['P_qry']},"
-        f"B={buckets['B_qry']},E={buckets['E_qry']}) agg={agg} "
-        f"pool={'compact' if compact else 'full'}")
+        f"B={buckets['B_qry']},E={buckets['E_qry']}) agg={agg}")
     return data
 
 
@@ -334,7 +331,7 @@ def run_shape(name, s, *, agg=None, device=None, steps=MEASURE_STEPS,
         data = shape_data(name, s, rec, pool)
     agg = agg or data.agg
     spec = shape_spec(s, data.feats.shape[1], data.n_out)
-    # without remat and with the record's pool mode, as the JAX bench
+    # without remat, on the compact pool the Trainer runs
     ml = MetaLearner(spec, data.n_out, update_lr=0.01, meta_lr=1e-3,
                      update_step=s["update_step"],
                      update_step_test=s["update_step"], remat=False,
@@ -343,12 +340,8 @@ def run_shape(name, s, *, agg=None, device=None, steps=MEASURE_STEPS,
     if init is not None:
         ml.set_params(init)
     ml.set_features(data.feats)
-    if data.compact:
-        ml.set_task_pool_compact(data.tasks)
-        run = ml.train_steps_from_compact
-    else:
-        ml.set_task_pool(data.tasks)
-        run = ml.train_steps_from_pool
+    ml.set_task_pool_compact(data.tasks)
+    run = ml.train_steps_from_compact
     rng = np.random.RandomState(0)
     idx_mat = np.stack([rng.choice(data.pool, s["task_num"], replace=False)
                         for _ in range(steps)]).astype(np.int32)
@@ -409,7 +402,7 @@ def run_shape(name, s, *, agg=None, device=None, steps=MEASURE_STEPS,
         "steps": steps,
         "task_num": s["task_num"],
         "dtype": str(dtype).replace("torch.", ""),
-        "pool_mode": "compact" if data.compact else "full",
+        "pool_mode": "compact",
         "meta_loss_first": float(losses[0]),
         "meta_loss_last": float(losses[-1]),
         "profile": busy,

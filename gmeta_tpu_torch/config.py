@@ -85,8 +85,9 @@ class Config:
                                         # (telemetry only, meta.py:129-157;
                                         # False trains identically)
     extractor: str = "auto"             # 'auto' | 'native' | 'numpy' host
-                                        # extraction; the port has only numpy
-                                        # so far ('native' raises)
+                                        # extraction; 'auto' takes the C++
+                                        # engine (csrc/extract.cpp) where
+                                        # g++ builds it, else numpy
     extract_disk_cache: bool = True     # persist native-engine extractions
                                         # (native engine only)
     agg: str = "auto"                   # aggregation kernel: 'auto' picks per

@@ -23,8 +23,9 @@ the same sequence of terms as before. Pad edges go to src 0 and dst M-1
 with mask 0, as data/pack.py places them. Only the CSR path takes this
 layout: the dense aggregation multiplies a (P, P) block per bin.
 
-`tally` counts, from host numbers only, each repacked set's `slots` before
-(T*B*P), its `rows` after (T*M) and its `live` nodes.
+The counts `TALLY` names (utils/metrics.py) add up, from host numbers
+only, each repacked set's `slots` before (T*B*P), its `rows` after (T*M)
+and its `live` nodes.
 """
 
 from __future__ import annotations
@@ -33,9 +34,10 @@ import numpy as np
 import torch
 
 from gmeta_tpu_torch.data.pack import SubgraphSet, TaskBatch, round_up
+from gmeta_tpu_torch.utils.metrics import count
 
 ROW_MULTIPLE = 8     # M is rounded up to a multiple of this
-tally = {"slots": 0, "rows": 0, "live": 0}
+TALLY = {"slots": "repack.slots", "rows": "repack.rows", "live": "repack.live"}
 
 
 def live_counts(bin_fill) -> np.ndarray:
@@ -56,16 +58,16 @@ def repack(sg: SubgraphSet, M: int, live) -> SubgraphSet:
     with them, pad edges at slot M-1 with mask 0. `live` holds the tasks'
     live counts (host), none above M, checked on the host (a task of more
     live slots would spill its edges into the next task's rows). A set
-    already in that form is returned as it is. Adds to `tally`."""
+    already in that form is returned as it is. Counted under `TALLY`."""
     T, B, P = sg.node_gid.shape
     live = np.asarray(live)
     if live.shape != (T,) or int(np.max(live, initial=0)) > M:
         raise ValueError(f"live counts of shape {live.shape}, largest "
                          f"{np.max(live, initial=0)}, for {T} tasks of "
                          f"{M} rows")
-    tally["slots"] += T * B * P
-    tally["rows"] += T * M
-    tally["live"] += int(np.sum(live))
+    count(TALLY["slots"], T * B * P)
+    count(TALLY["rows"], T * M)
+    count(TALLY["live"], int(np.sum(live)))
     if B == 1 and P == M:
         return sg
     dev = sg.node_gid.device

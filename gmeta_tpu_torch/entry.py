@@ -97,6 +97,7 @@ def _rank(workdir: str, device: str, backend: str) -> None:
                                                          EdgePartTask)
     from gmeta_tpu_torch.parallel.mesh import init_distributed, make_mesh
     from gmeta_tpu_torch.utils.device import resolve_device
+    from gmeta_tpu_torch.utils.metrics import counted
 
     if backend == "nccl":             # a card per rank
         device = f"cuda:{os.environ['LOCAL_RANK']}"
@@ -106,7 +107,7 @@ def _rank(workdir: str, device: str, backend: str) -> None:
     init_distributed(backend, device)
     n = dist.get_world_size()
     rank = dist.get_rank()
-    out = {}
+    out, launched = {}, counted()
     try:
         # one task data-parallel meta-step over all n ranks
         store, ds, cfg, spec = _tiny_setup(batchsz=max(n, 2))
@@ -164,10 +165,10 @@ def _rank(workdir: str, device: str, backend: str) -> None:
                    comm_rows_per_layer=ep.comm_rows_per_layer)
         out.update({f"ep_theta{i}": p.detach().cpu().numpy()
                     for i, p in enumerate(ep.params)})
-        out.update({f"launches_{k}": np.array([cnt["fwd"], cnt["bwd"]])
-                    for k, cnt in (("packed", sp.launches),
-                                   ("csr", sp.csr_launches),
-                                   ("combine", sp.combine_launches))})
+        out.update({f"launches_{k}": np.array(list(launched.of(n).values()))
+                    for k, n in (("packed", sp.LAUNCHES),
+                                 ("csr", sp.CSR_LAUNCHES),
+                                 ("combine", sp.COMBINE_LAUNCHES))})
     finally:
         dist.destroy_process_group()
     out["loaded"] = np.array(sorted(k for k in sys.modules

@@ -35,12 +35,12 @@ pool and window modes:
   reduced loss, so every rank takes the same decision. Theta is drawn from
   the seed on every rank and broadcast from rank 0 once.
 - the pool modes run K meta-steps per call over tasks that are already on
-  the device: a resident pool (full or compact form) gathered by index, or
-  a window of K meta-batches shipped as one int32 buffer in the JAX
-  package's wire format. PyTorch has no `lax.scan`, so a K-step call is a
-  Python loop of `train_step` that decodes one step's T tasks at a time on
-  the device, with no host sync, and returns the per-step metrics stacked
-  along a leading axis.
+  the device: the compact resident pool gathered by index, or a window of
+  K meta-batches shipped as one int32 buffer in the JAX package's wire
+  format. PyTorch has no `lax.scan`, so a K-step call is a Python loop of
+  meta-steps that decodes one step's T tasks at a time on the device, with
+  no host sync, and returns the per-step metrics stacked along a leading
+  axis.
 - on the CSR path (agg="sized") every decoded step runs repacked, each
   task's live slots in one bin (data/repack.py), so no layer computes the
   pad slots; the row count comes from bin fills the host already holds
@@ -348,15 +348,11 @@ class MetaLearner:
         # path multiplies a (P, P) block per bin and keeps the slot layout
         self._repacks = agg == "sized"
         self._feats = None
-        self._pool = None         # full-form device-resident pool
         self._cpool = None        # compact device-resident pool leaves
         self._cmeta = None        # (spt_meta, qry_meta) of the compact pool
+        self._clive = None        # its host live counts (spt, qry), each (N,)
         self._codec = None        # window codec (K, T, spt_meta, qry_meta)
         self._copy_stream = None  # CUDA stream of pinned window copies
-        # host live counts (spt, qry) of the full-form and compact pools,
-        # each (N,)
-        self._pool_live = self._clive = None
-        self._in_call = False     # inside a K-step call's steps
 
     # -- host-facing API -----------------------------------------------------
 
@@ -403,15 +399,14 @@ class MetaLearner:
         for the device (with a mesh, the collectives may wait). A host
         batch (numpy) runs repacked on the CSR path (`_decode`); a batch of
         tensors runs in the layout it has."""
-        if self._in_call:    # a K-step call's step, which decoded the batch
-            return self._train_step(batch)
-        return self._step(batch, _host_live(batch))
+        return self._step(lambda: (batch, _host_live(batch)))
 
-    def _step(self, batch: TaskBatch, live):
-        """One meta-step, its batch decoded in the span `decode`."""
+    def _step(self, make, *args):
+        """One meta-step on the batch and host live counts `make(*args)`
+        gives, made and decoded in the span `decode`."""
         with span("step"):
             with span("decode"):
-                batch = self._decode(batch, live)
+                batch = self._decode(*make(*args))
             return self._train_step(batch)
 
     def _decode(self, batch: TaskBatch, live, shard: bool = True):
@@ -481,49 +476,11 @@ class MetaLearner:
 
     def _train_steps(self, make, items) -> dict:
         """One meta-step per item of the iterable, in order, on the batch
-        and host live counts `make(item)` gives, decoded in its `decode`
-        span. Returns the per-step metrics stacked along a leading axis
-        (the JAX package's scanned `ms`), without waiting for the
-        device."""
-        ms = []
-        self._in_call = True
-        try:
-            for item in items:
-                with span("step"):
-                    with span("decode"):
-                        batch = self._decode(*make(item))
-                    ms.append(self.train_step(batch))
-        finally:
-            self._in_call = False
+        and host live counts `make(item)` gives. Returns the per-step
+        metrics stacked along a leading axis (the JAX package's scanned
+        `ms`), without waiting for the device."""
+        ms = [self._step(make, item) for item in items]
         return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
-
-    def _rows(self, idx) -> torch.Tensor:
-        """Task indices (host) as an int64 tensor on the device."""
-        return torch.as_tensor(np.asarray(idx, np.int64)).to(
-            self.device, non_blocking=True)
-
-    # -- full-form resident pool ---------------------------------------------
-
-    def set_task_pool(self, pool: TaskBatch):
-        """Place a stacked task pool (leading axis = number of tasks) on the
-        device once, in the form `batch_to` gives; train_step_from_pool and
-        train_steps_from_pool then transfer only task indices."""
-        self._pool_live = _host_live(pool)
-        self._pool = batch_to(pool, self.device)
-
-    def train_step_from_pool(self, idxs):
-        return self._step(take_tasks(self._pool, self._rows(idxs)),
-                          _take_live(self._pool_live, np.asarray(idxs)))
-
-    def train_steps_from_pool(self, idx_mat):
-        """idx_mat.shape[0] meta-steps over the resident pool, row k of
-        idx_mat naming step k's tasks. Returns stacked per-step metrics."""
-        idx = np.asarray(idx_mat, np.int64)
-        rows = self._rows(idx)
-        return self._train_steps(
-            lambda k: (take_tasks(self._pool, rows[k]),
-                       _take_live(self._pool_live, idx[k])),
-            range(idx.shape[0]))
 
     # -- window wire format --------------------------------------------------
     #
@@ -685,7 +642,7 @@ class MetaLearner:
         step's T tasks gathered and decoded at a time."""
         (spt, qry), (m_spt, m_qry) = self._cpool, self._cmeta
         idx = np.asarray(idx_mat, np.int64)
-        rows = self._rows(idx)
+        rows = torch.as_tensor(idx).to(self.device, non_blocking=True)
 
         def batch(k):
             return TaskBatch(

@@ -27,8 +27,8 @@ the plain PyTorch chain (`fwd_plain`, today's expression, differentiated by
 autograd), a CUDA tensor launches the kernels, and any other device raises.
 There is no fallback from a kernel to the plain version. Under
 create_graph (second-order MAML) the backward is the plain `bwd_plain`,
-which autograd differentiates again. `launches` counts the CUDA launches by
-direction.
+which autograd differentiates again. `LAUNCHES` names the counts of the
+CUDA launches by direction (utils/metrics.py).
 """
 
 from __future__ import annotations
@@ -39,9 +39,10 @@ from typing import Optional, Tuple
 import torch
 
 from gmeta_tpu_torch.ops import cuda_build
+from gmeta_tpu_torch.utils.metrics import count
 
-# Kernel launches per direction; only a CUDA launch adds to them.
-launches = {"fwd": 0, "bwd": 0}
+# Counted names of kernel launches per direction; only a CUDA launch counts.
+LAUNCHES = {"fwd": "epilogue.fwd", "bwd": "epilogue.bwd"}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROWS = 2**31 - 1     # the kernels' row index is 32 bits
@@ -146,7 +147,7 @@ def _launch_fwd(x, n, b, scale_out: bool, keep_y: bool, save_mask: bool):
     if err != 0:
         raise RuntimeError(f"gcn_epilogue forward launch failed (CUDA error "
                            f"{err}) at {tuple(x.shape)} {x.dtype}")
-    launches["fwd"] += 1
+    count(LAUNCHES["fwd"])
     return out, y, mask
 
 
@@ -164,7 +165,7 @@ def _launch_bwd(g, n, mask, scale_out: bool, want_pre: bool):
     if err != 0:
         raise RuntimeError(f"gcn_epilogue backward launch failed (CUDA "
                            f"error {err}) at {tuple(g.shape)} {g.dtype}")
-    launches["bwd"] += 1
+    count(LAUNCHES["bwd"])
     return g_x, g_pre
 
 

@@ -29,8 +29,9 @@ the plain PyTorch version (`fwd_plain`, `bwd_plain`, the kernels'
 arithmetic with gathers and index_add_, float64 too), a CUDA tensor
 launches the kernels (float32), and any other device raises; there is no
 fallback. The backward is first order: under create_graph it raises.
-`launches` counts the CUDA kernel launches by direction (the backward is
-three kernels). Every call, forward and backward, runs in an `attn` span
+`LAUNCHES` names the counts of the CUDA kernel launches by direction (the
+backward is three kernels; utils/metrics.py). Every call, forward and
+backward, runs in an `attn` span
 (utils/metrics.py).
 """
 
@@ -44,10 +45,10 @@ import torch.nn.functional as nnf
 
 from gmeta_tpu_torch.ops import cuda_build
 from gmeta_tpu_torch.ops.sized_spmm import SizedGraph, sized_graph
-from gmeta_tpu_torch.utils.metrics import span
+from gmeta_tpu_torch.utils.metrics import count, span
 
-# Kernel launches per direction; only a CUDA launch adds to them.
-launches = {"fwd": 0, "bwd": 0}
+# Counted names of kernel launches per direction; only a CUDA launch counts.
+LAUNCHES = {"fwd": "gat_attention.fwd", "bwd": "gat_attention.bwd"}
 
 SLOPE = 0.2               # LeakyReLU's negative slope (the paper's)
 _MAX_ROWS = 2**31 - 1     # the kernels' row index is 32 bits
@@ -180,7 +181,7 @@ def _launch_fwd(graph: AttnGraph, zst: torch.Tensor, K: int, F: int):
     if err != 0:
         raise RuntimeError(f"gat_attention forward launch failed (CUDA "
                            f"error {err}) at N={N} K={K} F={F}")
-    launches["fwd"] += 1
+    count(LAUNCHES["fwd"])
     return o, lse
 
 
@@ -203,7 +204,7 @@ def _launch_bwd(graph: AttnGraph, zst, o, lse, g, K: int, F: int):
     if err != 0:
         raise RuntimeError(f"gat_attention backward launch failed (CUDA "
                            f"error {err}) at N={N} K={K} F={F}")
-    launches["bwd"] += 3
+    count(LAUNCHES["bwd"], 3)
     return dzst
 
 

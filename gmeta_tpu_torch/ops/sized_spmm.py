@@ -34,14 +34,14 @@ plans, built once on the host).
 Where each runs is decided by the tensor's device alone: a CPU tensor takes
 the plain PyTorch version (`sized_plain`, `csr_plain`), a CUDA tensor
 launches the kernel, and any other device raises. There is no fallback from
-the kernel to the plain version. `launches` counts the packed path's kernel
-launches per direction, `csr_launches` the rectangular entry point's and
-`combine_launches` its combine kernel's, so a run can show which of its
-paths went through which kernel (`launches_by_dtype` splits the packed
-path's by the dtype of x). Within `spmm.count_aggregation`, every
-`launch` (kernel or plain version) also adds its call to the tally, and
-while a profiler is active each runs in an `agg` span
-(utils/metrics.py).
+the kernel to the plain version. `LAUNCHES` names the counts of the packed
+path's kernel launches per direction (utils/metrics.py), `CSR_LAUNCHES`
+the rectangular entry point's and `COMBINE_LAUNCHES` its combine kernel's,
+so a run can show which of its paths went through which kernel
+(`LAUNCHES_BY_DTYPE` splits the packed path's by the dtype of x). Within
+`spmm.count_aggregation`, every `launch` (kernel or plain version) also
+adds its call to the tally, and while a profiler is active each runs in an
+`agg` span (utils/metrics.py).
 """
 
 from __future__ import annotations
@@ -54,16 +54,17 @@ from typing import NamedTuple, Tuple
 import torch
 
 from gmeta_tpu_torch.ops import cuda_build, spmm
-from gmeta_tpu_torch.utils.metrics import span
+from gmeta_tpu_torch.utils.metrics import count, span
 
-# Kernel launches per direction; only a CUDA launch adds to them.
-launches = {"fwd": 0, "bwd": 0}        # packed sets (launch)
-# the same launches split by the dtype of x: a bf16 run aggregates layer 1
-# in float32 where that layer aggregates first (models/gcn.py)
-launches_by_dtype = {"float32": {"fwd": 0, "bwd": 0},
-                     "bfloat16": {"fwd": 0, "bwd": 0}}
-csr_launches = {"fwd": 0, "bwd": 0}    # rectangular tables (csr_gather)
-combine_launches = {"fwd": 0, "bwd": 0}   # csr_gather's split rows
+# Counted names of kernel launches per direction; only a CUDA launch counts.
+LAUNCHES = {d: f"sized_spmm.{d}" for d in ("fwd", "bwd")}     # packed sets
+# the same split by the dtype of x: a bf16 run aggregates layer 1 in
+# float32 where that layer aggregates first (models/gcn.py)
+LAUNCHES_BY_DTYPE = {t: {d: f"sized_spmm.{t}.{d}" for d in LAUNCHES}
+                     for t in ("float32", "bfloat16")}
+_BY_DTYPE = {getattr(torch, t): n for t, n in LAUNCHES_BY_DTYPE.items()}
+CSR_LAUNCHES = {d: f"csr_gather.{d}" for d in LAUNCHES}      # csr_gather
+COMBINE_LAUNCHES = {d: f"csr_combine.{d}" for d in LAUNCHES}  # split rows
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROWS = 2**31 - 512   # int32 row indices, with a block's overhang
@@ -220,7 +221,7 @@ def launch(direction: str, graph: SizedGraph, x: torch.Tensor) -> torch.Tensor:
     """Run one direction ("fwd" or "bwd") of the graph on x (S, P, H), or
     on x (T, S, P, H) for T tasks that share it, on x's device: the plain
     version on the CPU, one kernel launch on CUDA (counted in
-    `launches`), inside an `agg` span."""
+    `LAUNCHES`), inside an `agg` span."""
     with span("agg"):
         return _launch(direction, graph, x)
 
@@ -238,8 +239,8 @@ def _launch(direction: str, graph: SizedGraph,
         return sized_plain(row_ptr, col, x)
     out = torch.empty_like(x)
     _run_kernel(row_ptr, col, x, out, S * P, direction, tasks)
-    launches[direction] += 1
-    launches_by_dtype[str(x.dtype).removeprefix("torch.")][direction] += 1
+    count(LAUNCHES[direction])
+    count(_BY_DTYPE[x.dtype][direction])
     return out
 
 
@@ -370,17 +371,17 @@ def _check_split(split: RowSplit, row_ptr: torch.Tensor):
 
 
 def csr_gather(row_ptr: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
-               count: str = "fwd", split: RowSplit = None) -> torch.Tensor:
+               direction: str = "fwd",
+               split: RowSplit = None) -> torch.Tensor:
     """out (len(row_ptr) - 1, H) = the CSR times the table x (rows, H), on
     x's device: `csr_plain` on the CPU (which also takes float64), the
-    full-graph kernel on CUDA,
-    counted in `csr_launches[count]` ("fwd" or "bwd", the direction the
-    caller runs), and where `split` cuts rows, the combine kernel after it,
-    counted in `combine_launches[count]`. `split` is the CSR's `row_split`
-    (built here, with a host sync, when None); the slabs are `slab_width`
-    columns for this table and card. Every col entry must lie in [0,
-    rows): the kernel does not check it, so `csr_pair` checks that on the
-    host."""
+    full-graph kernel on CUDA, counted under `CSR_LAUNCHES[direction]`
+    ("fwd" or "bwd", the direction the caller runs), and where `split` cuts
+    rows, the combine kernel after it, counted under `COMBINE_LAUNCHES`.
+    `split` is the CSR's `row_split` (built here, with a host sync, when
+    None); the slabs are `slab_width` columns for this table and card.
+    Every col entry must lie in [0, rows): the kernel does not check it, so
+    `csr_pair` checks that on the host."""
     _check_devices(row_ptr, col, x)
     _check_rect(row_ptr, col, x)
     if x.device.type == "cpu":
@@ -404,12 +405,12 @@ def csr_gather(row_ptr: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
                    n_rows, n_chunks, H, _DTYPE_CODE[x.dtype], slab,
                    split.chunk, stream)
         if err != 0:
-            raise RuntimeError(f"csr_gather {count} kernel launch failed "
-                               f"(CUDA error {err}) at N={n_rows} H={H} "
-                               f"{x.dtype} slab={slab}")
-        csr_launches[count] += 1
+            raise RuntimeError(f"csr_gather {direction} kernel launch "
+                               f"failed (CUDA error {err}) at N={n_rows} "
+                               f"H={H} {x.dtype} slab={slab}")
+        count(CSR_LAUNCHES[direction])
     if split.rows.shape[0]:
-        csr_combine(split, partial, out, count)
+        csr_combine(split, partial, out, direction)
     return out
 
 
@@ -428,10 +429,10 @@ def combine_plain(split: RowSplit, partial: torch.Tensor,
 
 
 def csr_combine(split: RowSplit, partial: torch.Tensor, out: torch.Tensor,
-                count: str = "fwd") -> torch.Tensor:
+                direction: str = "fwd") -> torch.Tensor:
     """Write the split rows of out (n_rows, H) from the chunks' float32
     partial sums (n_chunks, H): `combine_plain` on the CPU, the combine
-    kernel on CUDA, counted in `combine_launches[count]`. Returns out."""
+    kernel on CUDA, counted under `COMBINE_LAUNCHES`. Returns out."""
     if not (partial.device == out.device == split.rows.device):
         raise ValueError("split, partial and out must share a device")
     if out.device.type == "cpu":
@@ -451,9 +452,9 @@ def csr_combine(split: RowSplit, partial: torch.Tensor, out: torch.Tensor,
                       partial.data_ptr(), out.data_ptr(), n_split, H,
                       _DTYPE_CODE[out.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"csr_gather {count} combine launch failed (CUDA "
-                           f"error {err}) at {n_split} rows H={H}")
-    combine_launches[count] += 1
+        raise RuntimeError(f"csr_gather {direction} combine launch failed "
+                           f"(CUDA error {err}) at {n_split} rows H={H}")
+    count(COMBINE_LAUNCHES[direction])
     return out
 
 

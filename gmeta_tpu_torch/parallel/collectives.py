@@ -21,9 +21,9 @@ one-shard halo.
 
 Under gloo, CUDA tensors are staged through host memory (gloo's collectives
 are for host tensors); that is how ranks that share one card meet. NCCL
-takes them on the device. `seconds` accumulates the host seconds spent in
-each kind of collective, waits included: exact where the call blocks
-(gloo), the enqueue time under NCCL; `calls` counts them.
+takes them on the device. Counted (utils/metrics.py): under `SECONDS` the
+host seconds spent in each kind of collective, waits included (exact where
+the call blocks, gloo; the enqueue time under NCCL), under `CALLS` calls.
 """
 
 from __future__ import annotations
@@ -33,8 +33,10 @@ import time
 import torch
 import torch.distributed as dist
 
-seconds = {"all_reduce": 0.0, "all_to_all": 0.0}
-calls = {"all_reduce": 0, "all_to_all": 0}
+from gmeta_tpu_torch.utils.metrics import count
+
+SECONDS = {k: f"{k}.seconds" for k in ("all_reduce", "all_to_all")}
+CALLS = {k: f"{k}.calls" for k in SECONDS}
 
 
 def _staged(x: torch.Tensor, group) -> bool:
@@ -51,8 +53,8 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     else:
         out = x.detach().clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=group)
-    seconds["all_reduce"] += time.perf_counter() - t0
-    calls["all_reduce"] += 1
+    count(SECONDS["all_reduce"], time.perf_counter() - t0)
+    count(CALLS["all_reduce"])
     return out
 
 
@@ -88,14 +90,15 @@ class _Pending:
         for w in self.works:
             w.wait()
         self.works = []
-        seconds["all_to_all"] += self.enqueue_s + time.perf_counter() - t0
+        count(SECONDS["all_to_all"],
+              self.enqueue_s + time.perf_counter() - t0)
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, pending):
         ctx.group = group
-        calls["all_to_all"] += 1
+        count(CALLS["all_to_all"])
         t0 = time.perf_counter()
         if _staged(x, group):
             # gloo on CUDA tensors: through host memory, synchronously
@@ -114,7 +117,7 @@ class _AllToAll(torch.autograd.Function):
         if pending is not None:
             pending.enqueue_s += dt
         else:
-            seconds["all_to_all"] += dt
+            count(SECONDS["all_to_all"], dt)
         return out
 
     @staticmethod

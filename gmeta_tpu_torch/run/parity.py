@@ -367,6 +367,7 @@ def eval_from(name: str, ckpt_dir: str, replicas: str, device=None,
     from gmeta_tpu_torch.ops import sized_spmm as sp
     from gmeta_tpu_torch.run.train import build_datasets
     from gmeta_tpu_torch.utils.device import resolve_device
+    from gmeta_tpu_torch.utils.metrics import counted
     device = resolve_device(device)
     rep_dir, gen_s = replica(name, replicas)
     size = check_replica(rep_dir, ckpt_dir)
@@ -387,10 +388,11 @@ def eval_from(name: str, ckpt_dir: str, replicas: str, device=None,
 
     first = None
     for a in aggs:
-        before = dict(sp.launches)
-        got = eval_checkpoint(dataclasses.replace(cfg, agg=a), store,
-                              datasets, labels_num, ckpt_dir, device=device)
-        got["launches"] = {d: sp.launches[d] - before[d] for d in before}
+        with counted() as c:
+            got = eval_checkpoint(dataclasses.replace(cfg, agg=a), store,
+                                  datasets, labels_num, ckpt_dir,
+                                  device=device)
+        got["launches"] = c.of(sp.LAUNCHES)
         d = compare(got, name, jax_cpu)
         res = {k: got[k] for k in ("agg", "acc", "launches", "curves_last",
                                    "curves_best", "eval_s")}

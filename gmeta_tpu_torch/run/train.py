@@ -68,8 +68,8 @@ from gmeta_tpu_torch.parallel import mesh as mesh_mod
 from gmeta_tpu_torch.utils import checkpoint as ckpt
 from gmeta_tpu_torch.utils.device import resolve_device
 from gmeta_tpu_torch.utils.metrics import (MetricLogger, StreamClock,
-                                           clear_spans, rss_gb, span_summary,
-                                           spans)
+                                           clear_spans, counted, rss_gb,
+                                           span_summary, spans)
 
 @dataclasses.dataclass
 class FitResult:
@@ -340,12 +340,12 @@ class Trainer:
             n_tasks)[:steps * self.cfg.task_num]
         return order.reshape(steps, self.cfg.task_num)
 
-    def _log_window(self, epoch, start, n_steps, m, dt, mean_edges, rows):
+    def _log_window(self, epoch, start, n_steps, m, dt, mean_edges, counts):
         """The train_window record of a window's metrics (on the host);
-        `rows`, the window's part of the repack tally (data/repack.py),
-        gives its row_share (rows run / slots packed) and live_share (live
-        nodes / rows run) where its steps were repacked."""
-        accs = m["accs"][-1]
+        `counts`, the window's counts (utils/metrics.py `counted`), give
+        its row_share (rows run / slots packed) and live_share (live nodes
+        / rows run) where its steps were repacked (data/repack.py)."""
+        accs, rows = m["accs"][-1], counts.of(repack.TALLY)
         tasks_per_s = n_steps * self.cfg.task_num / dt
         self.metrics.echo_line(
             f"Epoch: {epoch + 1}  Step: {start + n_steps}  training acc: "
@@ -422,9 +422,8 @@ class Trainer:
                 chunk = idx_mat[start:start + window]
                 prof = (_start_trace(self.device)
                         if chunks_done == prof_chunk else None)
-                before = dict(repack.tally)
-                m = self.learner.train_steps_from_compact(chunk)
-                rows = _tally_since(before)
+                with counted() as counts:
+                    m = self.learner.train_steps_from_compact(chunk)
                 m = {k: v.cpu().numpy() for k, v in m.items()}  # sync point
                 if prof is not None:
                     self._stop_trace(prof)
@@ -434,7 +433,7 @@ class Trainer:
                 n_steps = int(chunk.shape[0])
                 self.global_step += n_steps
                 self._log_window(epoch, start, n_steps, m, dt, mean_edges,
-                                 rows)
+                                 counts)
                 steps_since_save += n_steps
                 if (cfg.checkpoint_every_steps
                         and steps_since_save >= cfg.checkpoint_every_steps):
@@ -509,21 +508,21 @@ class Trainer:
                     q.put(e)
 
             def consume(p, epoch=epoch):
-                start, n_steps, (m, snap), landed, t0, t1, rows = p
+                start, n_steps, (m, snap), landed, t0, t1, counts = p
                 if landed is not None:
                     landed.synchronize()          # window N only, not N+1
                 m = {k: v.numpy() for k, v in m.items()}
                 dt = max(clock.seconds(t0, t1), 1e-9)
                 self.global_step += n_steps
                 self._log_window(epoch, start, n_steps, m, dt, mean_edges,
-                                 rows)
+                                 counts)
                 if snap is not None:
                     self._save(epoch, batch_in_epoch=start + n_steps,
                                params=snap[0], opt_state=snap[1])
 
             th = threading.Thread(target=produce, daemon=True)
             th.start()
-            # (start, n_steps, host copies, event, marks, tally counts)
+            # (start, n_steps, host copies, event, marks, counts)
             pending = None
             prof = None
             mark = clock.mark()
@@ -540,10 +539,9 @@ class Trainer:
                     dev, copied = self.learner.put_buffer(buf, codec)
                     if slot is not None:
                         free.put((slot, copied))
-                    before = dict(repack.tally)
-                    m = self.learner.train_steps_from_window(
-                        dev, cfg.task_num)
-                    rows = _tally_since(before)
+                    with counted() as counts:
+                        m = self.learner.train_steps_from_window(
+                            dev, cfg.task_num)
                     end = clock.mark()
                     steps_since_save += n_steps
                     snap = None
@@ -562,7 +560,7 @@ class Trainer:
                             self._stop_trace(prof)
                             prof = None
                     pending = (start, n_steps, copies, landed, mark, end,
-                               rows)
+                               counts)
                     mark = end
                     windows_done += 1
                 if pending is not None:
@@ -609,11 +607,6 @@ class Trainer:
             global_step=self.global_step)
         self.metrics.log("fit_result", **dataclasses.asdict(result))
         return result
-
-
-def _tally_since(before: dict) -> dict:
-    """The repack tally's counts added since `before`, a copy of it."""
-    return {k: v - before[k] for k, v in repack.tally.items()}
 
 
 def _wait(mark) -> None:

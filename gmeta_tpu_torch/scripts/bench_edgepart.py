@@ -44,6 +44,7 @@ from gmeta_tpu_torch.parallel.edgepart_train import (EdgePartMetaTrainer,
 from gmeta_tpu_torch.run.edgepart import union_graph
 from gmeta_tpu_torch.scripts.common import ROOT, finish, fmt, parser, start
 from gmeta_tpu_torch.utils.cardtime import sync
+from gmeta_tpu_torch.utils.metrics import counted
 
 MAKE = "python -m gmeta_tpu_torch.data.replicas tree_of_life --out replicas"
 
@@ -110,8 +111,7 @@ def main(argv=None):
             y = np.tile(np.tile(np.arange(2), S // 2), (T, 1)).astype(np.int32)
             return EdgePartTask(c, y, q, y)
 
-        before = {"csr": dict(sp.csr_launches),
-                  "combine": dict(sp.combine_launches)}
+        launched = counted()
         try:
             t0 = time.perf_counter()
             m = tr.train_step(make_task())            # warm
@@ -138,9 +138,8 @@ def main(argv=None):
                step_s=dt / args.steps, meta_loss=loss,
                peak_gb=(torch.cuda.max_memory_allocated(device) / 1e9
                         if cuda else None),
-               launches={k: {d: counts[d] - before[k][d] for d in counts}
-                         for k, counts in (("csr", sp.csr_launches),
-                                           ("combine", sp.combine_launches))})
+               launches={"csr": launched.of(sp.CSR_LAUNCHES),
+                         "combine": launched.of(sp.COMBINE_LAUNCHES)})
     if cuda and not all(out["launches"]["csr"].values()):
         raise RuntimeError(f"csr_gather did not launch both ways: "
                            f"{out['launches']}")

@@ -36,6 +36,7 @@ from gmeta_tpu_torch.ops import sized_spmm as sp
 from gmeta_tpu_torch.ops.spmm import aggregate, aggregate_ell, build_ell
 from gmeta_tpu_torch.scripts.common import finish, fmt, parser, start
 from gmeta_tpu_torch.utils import cardtime
+from gmeta_tpu_torch.utils.metrics import counted
 
 UNIT = {torch.float32: 2.0**-24, torch.bfloat16: 2.0**-8}
 PATHS = ("segment", "ell", "csr_gather")
@@ -100,8 +101,7 @@ def main(argv=None):
     del nbr, row_id
     read = {"fwd": int(torch.unique(pair.col).numel()),
             "bwd": int(torch.unique(pair.col_t).numel())}
-    before = {"csr": dict(sp.csr_launches),
-              "combine": dict(sp.combine_launches)}
+    launched = counted()
 
     for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         g = torch.Generator().manual_seed(1)
@@ -145,10 +145,8 @@ def main(argv=None):
         del h, em, maskd, ref, bound
         if device.type == "cuda":
             torch.cuda.empty_cache()
-    out["launches"] = {
-        k: {d: counts[d] - before[k][d] for d in counts}
-        for k, counts in (("csr", sp.csr_launches),
-                          ("combine", sp.combine_launches))}
+    out["launches"] = {"csr": launched.of(sp.CSR_LAUNCHES),
+                       "combine": launched.of(sp.COMBINE_LAUNCHES)}
     if device.type == "cuda":
         if not all(out["launches"]["csr"].values()):
             raise RuntimeError(f"csr_gather did not launch both ways: "

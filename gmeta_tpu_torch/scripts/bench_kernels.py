@@ -80,6 +80,7 @@ from gmeta_tpu_torch.ops.spmm import (aggregate, aggregate_dense,
 from gmeta_tpu_torch.scripts.common import (OUT_DIR, ROOT, finish, fmt,
                                             parser, start)
 from gmeta_tpu_torch.utils import cardtime
+from gmeta_tpu_torch.utils.metrics import counted
 
 # (feat, hidden) per recipe preset (config.py PRESETS + replica feature
 # widths): the spt bucket is timed at the layer-1 aggregated width
@@ -682,14 +683,13 @@ def main(argv=None):
         out = args.out
         if out == ap.get_default("out"):
             out = str(OUT_DIR / "bench_crossover.json")
-        before = dict(sp.launches)
-        sweep = crossover_sweep(device, timer, rng)
+        with counted() as c:
+            sweep = crossover_sweep(device, timer, rng)
         sweep.update(head, unit="ms", iters=args.iters,
-                     launches={d: sp.launches[d] - before[d]
-                               for d in before})
+                     launches=c.of(sp.LAUNCHES))
         return finish(sweep, out, sweep_table(sweep))
     shapes = load_shapes(args.parity_dir)
-    before = dict(sp.launches)
+    launched = counted()
 
     if args.global_b_ab:
         ab = global_b_ab(shapes, args.tasks or PRESETS["arxiv"].task_num,
@@ -722,7 +722,7 @@ def main(argv=None):
     results["main_path_bf16"] = main_path_bf16(
         {r: shapes[r] for r in args.recipes},
         lambda r: args.tasks or PRESETS[r].task_num, rng, device, timer)
-    results["launches"] = {d: sp.launches[d] - before[d] for d in before}
+    results["launches"] = launched.of(sp.LAUNCHES)
     if device.type == "cuda" and not all(results["launches"].values()):
         raise RuntimeError(f"the sized kernel did not launch both ways: "
                            f"{results['launches']}")

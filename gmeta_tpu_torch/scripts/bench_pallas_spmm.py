@@ -23,6 +23,7 @@ from gmeta_tpu_torch.ops import sized_spmm as sp
 from gmeta_tpu_torch.ops.spmm import aggregate_dense
 from gmeta_tpu_torch.scripts.common import finish, fmt, parser, start
 from gmeta_tpu_torch.utils import cardtime
+from gmeta_tpu_torch.utils.metrics import counted
 
 TOLS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (8e-3, 8e-3)}
 
@@ -125,11 +126,11 @@ def main(argv=None):
     rng = np.random.RandomState(1)
     sizes = rng.randint(40 * P // 1024, 1000 * P // 1024, S)
     A, h, sizes = mk(S, P, H, sizes)
-    before = dict(sp.launches)
     result = dict(head, S=S, P=P, H=H, sizes=sizes.tolist(), unit="ms")
-    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        result[tag] = run_dtype(A, h, sizes, dtype, device, args.iters)
-    result["launches"] = {d: sp.launches[d] - before[d] for d in before}
+    with counted() as c:
+        for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            result[tag] = run_dtype(A, h, sizes, dtype, device, args.iters)
+    result["launches"] = c.of(sp.LAUNCHES)
     if device.type == "cuda" and not all(result["launches"].values()):
         raise RuntimeError(f"the sized kernel did not launch both ways: "
                            f"{result['launches']}")

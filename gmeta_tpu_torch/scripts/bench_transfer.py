@@ -20,7 +20,9 @@ Counterpart of scripts/bench_transfer.py, with its keys:
   wire_mb           the numpy batch's bytes; copied_mb what `batch_to`
                     ships
   dispatch_s        one tiny kernel and a sync
-  step_pool_s       `train_step_from_pool` over a resident pool, synced
+  step_pool_s       a one-step `train_steps_from_compact`, synced: the
+                    compact resident pool the Trainer runs, which
+                    streaming is compared with
   step_stream_s     stack_tasks, then `train_step` of the numpy batch
                     (copy and compute), synced
   pool_tasks_per_s, stream_tasks_per_s
@@ -48,6 +50,7 @@ from gmeta_tpu_torch.meta.maml import MetaLearner, batch_to
 from gmeta_tpu_torch.ops import sized_spmm as sp
 from gmeta_tpu_torch.scripts.common import finish, parser, start
 from gmeta_tpu_torch.utils.cardtime import sync
+from gmeta_tpu_torch.utils.metrics import counted
 
 ARXIV = (1024, 9, 18432, 1024, 72, 129024)   # P, B, E of spt, then qry
 
@@ -97,17 +100,22 @@ def make_learner(feat_dim, hidden, update_step, agg, device, n_feat, rng):
 
 
 def pool_and_stream_losses(learner, batch_np):
-    """meta_loss of one pool step and one stream step from the same theta
-    (Adam restarted for each), theta restored after; the pool is placed."""
+    """meta_loss of one compact pool step and one stream step from the same
+    theta (Adam restarted for each), theta restored after; the pool stays."""
     theta = [p.detach().clone() for p in learner.params]
     T = batch_np.spt.node_gid.shape[0]
-    learner.set_task_pool(batch_np)
-    pool = learner.train_step_from_pool(np.arange(T))["meta_loss"].item()
+    learner.set_task_pool_compact(batch_np)
+    pool = pool_step(learner, np.arange(T)[None])
     learner.set_params(theta)
     stream = learner.train_step(
         stack_tasks(split_tasks(batch_np)))["meta_loss"].item()
     learner.set_params(theta)
     return pool, stream
+
+
+def pool_step(learner, idx_mat) -> float:
+    """meta_loss of a compact pool call of one step, idx_mat (1, T)."""
+    return learner.train_steps_from_compact(idx_mat)["meta_loss"][0].item()
 
 
 def _seconds(fn, reps, device, warm=1):
@@ -161,7 +169,7 @@ def main(argv=None):
     out = dict(head, tasks=T, agg="sized", buckets=list(args.buckets),
                hidden=args.hidden, feat_dim=args.feat_dim,
                update_step=args.update_step, reps=reps, wire_mb=wire_mb)
-    before = dict(sp.launches)
+    launched = counted()
 
     # host: the per-step stack (packing is cached after the first epoch)
     per_task = split_tasks(batch_np)
@@ -221,16 +229,15 @@ def main(argv=None):
                              f"{stream}")
     out["meta_loss_pool"], out["meta_loss_stream"] = pool, stream
 
-    idxs = np.arange(T)
-    out["step_pool_s"] = _seconds(
-        lambda: learner.train_step_from_pool(idxs)["meta_loss"].item(),
-        reps, device)
+    idxs = np.arange(T)[None]
+    out["step_pool_s"] = _seconds(lambda: pool_step(learner, idxs), reps,
+                                  device)
     out["step_stream_s"] = _seconds(
         lambda: learner.train_step(stack_tasks(per_task))["meta_loss"]
         .item(), reps, device)
     out["pool_tasks_per_s"] = T / out["step_pool_s"]
     out["stream_tasks_per_s"] = T / out["step_stream_s"]
-    out["launches"] = {d: sp.launches[d] - before[d] for d in before}
+    out["launches"] = launched.of(sp.LAUNCHES)
     if cuda and not all(out["launches"].values()):
         raise RuntimeError(f"the sized kernel did not launch both ways: "
                            f"{out['launches']}")

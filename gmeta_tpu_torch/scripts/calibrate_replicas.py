@@ -51,6 +51,7 @@ from gmeta_tpu_torch.data.replicas import (block_labels, class_features,
 from gmeta_tpu_torch.ops import sized_spmm as sp
 from gmeta_tpu_torch.scripts.common import ROOT, finish, fmt, parser, start
 from gmeta_tpu_torch.utils.device import resolve_device
+from gmeta_tpu_torch.utils.metrics import counted
 
 OUT = ROOT / "parity_torch" / "cal" / "calibrate_replicas.json"
 
@@ -277,11 +278,11 @@ def main(argv=None):
     ap.add_argument("recipes", nargs="*", choices=list(RECIPE_PROXIES) + [[]])
     args = ap.parse_args(argv)
     device, head = start(args.device)
-    before = dict(sp.csr_launches), dict(sp.combine_launches)
-    rows = run(args.recipes or list(RECIPE_PROXIES), device)
+    with counted() as c:
+        rows = run(args.recipes or list(RECIPE_PROXIES), device)
     result = dict(head, dtype="float32", recipes=rows, launches={
-        "csr_gather": sp.csr_launches["fwd"] - before[0]["fwd"],
-        "combine": sp.combine_launches["fwd"] - before[1]["fwd"]})
+        "csr_gather": c[sp.CSR_LAUNCHES["fwd"]],
+        "combine": c[sp.COMBINE_LAUNCHES["fwd"]]})
     lines = ["| recipe | proto | lda | JAX proto | JAX lda | target | s "
              "| graphs | edges | split rows |", "|---" * 10 + "|"]
     for name, r in rows.items():

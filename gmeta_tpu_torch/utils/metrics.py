@@ -12,6 +12,12 @@ costs one check otherwise. Each recorded span keeps its name, its parent,
 the meta-step it belongs to, its host interval on the Unix clock in ns (the
 clock of the profiler's device events) and its device time between two
 `StreamClock` marks, resolved by `spans()` once the window's work is done.
+
+`count(name, n)` adds to one process-wide table of counts, the program's
+only one: the kernel wrappers' launches, the repack's rows, the
+collectives' calls and seconds, each under a dotted name that its module
+fixes as a constant. `counted()` reads each name's delta over a stretch
+of the program; nothing is ever reset.
 """
 
 from __future__ import annotations
@@ -100,6 +106,50 @@ class StreamClock:
         if isinstance(a, float):
             return b - a
         return a.elapsed_time(b) / 1e3
+
+
+# --- counts ------------------------------------------------------------------
+
+_counts: Dict[str, float] = {}
+
+
+def count(name: str, n=1) -> None:
+    """Add n to the count `name`: one dict increment, unlocked. The
+    program counts from one thread at a time (a backward runs on the
+    autograd engine's thread while its caller waits in it)."""
+    _counts[name] = _counts.get(name, 0) + n
+
+
+def counts() -> Dict[str, float]:
+    """The table as it stands: every name counted so far, with its total."""
+    return dict(_counts)
+
+
+class counted:
+    """Each name's delta from here on: `c[name]` (0 for a name that did
+    not move) and `c.of({key: name})` read it up to now, or, where `c` is
+    used as a context manager, over its body. Marks nest and reset
+    nothing."""
+
+    def __init__(self):
+        self._start = dict(_counts)
+        self._end = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._end = dict(_counts)
+        return False
+
+    def __getitem__(self, name: str):
+        end = _counts if self._end is None else self._end
+        return end.get(name, 0) - self._start.get(name, 0)
+
+    def of(self, names: Dict[str, str]) -> Dict[str, float]:
+        """{key: delta of names[key]}, e.g. a kernel's launches by
+        direction from its module's {"fwd": ..., "bwd": ...}."""
+        return {k: self[n] for k, n in names.items()}
 
 
 # --- spans -------------------------------------------------------------------

@@ -126,10 +126,11 @@ def _record(compact, agg, P=128):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("compact, agg", [(False, "dense"), (True, "sized")])
 def test_cut_replay_matches_jax(monkeypatch, compact, agg, dtype):
-    """bench_shape's run at hidden 16, 2 tasks, 2 inner steps, 2 meta-steps,
-    P = 128, from the JAX seed-0 theta, against the JAX MetaLearner's
-    train_steps_from_pool (full pool) or train_steps_from_compact (compact
-    pool) on the same pool and indices: both meta-losses at
+    """bench_shape's run (on the compact pool, whatever the record's pool
+    mode) at hidden 16, 2 tasks, 2 inner steps, 2 meta-steps, P = 128,
+    from the JAX seed-0 theta, against the JAX MetaLearner's full-form pool
+    (a record without `device_task_pool`) or compact pool on the same pool
+    and indices: both meta-losses at
     tests/test_torch_meta.py's tolerances, and theta after the run at them
     too in float32 (the head bias bounded as there).
 
@@ -173,8 +174,7 @@ def test_cut_replay_matches_jax(monkeypatch, compact, agg, dtype):
     out, ml = bench.run_shape(name, s, device="cpu", steps=STEPS, pool=POOL,
                               rec=rec, dtype=getattr(torch, dtype),
                               init=init)
-    assert out["agg"] == agg and out["pool_mode"] == (
-        "compact" if compact else "full")
+    assert out["agg"] == agg and out["pool_mode"] == "compact"
     np.testing.assert_allclose(
         [out["meta_loss_first"], out["meta_loss_last"]],
         np.asarray(jm["meta_loss"], np.float32), rtol=1e-4, atol=1e-5)

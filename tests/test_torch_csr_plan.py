@@ -15,6 +15,7 @@ from gmeta_tpu_torch.ops import sized_spmm as sp
 from gmeta_tpu_torch.parallel.edgepart import (build_overlap_plan,
                                                pad_features, shard_graph)
 from gmeta_tpu_torch.parallel.edgepart_train import overlap_shard
+from gmeta_tpu_torch.utils.metrics import counted
 
 torch.set_num_threads(2)
 
@@ -163,9 +164,9 @@ def test_split_partials_combined_match_segment_sum(chunk, H, dtype):
         zip(plan.chunk_start.numpy(), plan.chunk_row.numpy())]))
     out = sp.csr_plain(pair.row_ptr, pair.col, torch.from_numpy(x)).to(dtype)
     out[plan.rows.long()] = 0.0
-    before = dict(sp.combine_launches)
-    got = sp.csr_combine(plan, partial, out)
-    assert got is out and sp.combine_launches == before
+    with counted() as c:
+        got = sp.csr_combine(plan, partial, out)
+    assert got is out and c.of(sp.COMBINE_LAUNCHES) == {"fwd": 0, "bwd": 0}
     want = jax.ops.segment_sum(jnp.asarray(x)[src], jnp.asarray(dst),
                                num_segments=n_dst)
     want = np.asarray(want)

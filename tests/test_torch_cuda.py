@@ -24,6 +24,7 @@ from gmeta_tpu_torch.meta.maml import MetaLearner, take_tasks
 from gmeta_tpu_torch.ops import sized_spmm
 from gmeta_tpu_torch.ops.spmm import densify
 from gmeta_tpu_torch.run.train import Trainer
+from gmeta_tpu_torch.utils.metrics import counted
 
 pytestmark = pytest.mark.cuda
 
@@ -80,10 +81,10 @@ def test_kernels_match_plain(cuda, H, dtype):
     graph, x, A = _packed(512, sizes, H, dtype, cuda, seed=H)
     assert int(graph.degrees().max()) >= 3000
     for direction, At in (("fwd", A), ("bwd", A.transpose(1, 2))):
-        before = sized_spmm.launches[direction]
-        got = sized_spmm.launch(direction, graph, x)
+        with counted() as c:
+            got = sized_spmm.launch(direction, graph, x)
         torch.cuda.synchronize()
-        assert sized_spmm.launches[direction] == before + 1
+        assert c[sized_spmm.LAUNCHES[direction]] == 1
         assert got.dtype == dtype and got.shape == x.shape
         want = sized_spmm.sized_plain(*graph.csr(direction), x)
         assert torch.equal(got, want)
@@ -104,10 +105,10 @@ def test_shared_call_matches_plain_and_separate_launches(cuda, T, H, dtype):
     graph, x, _ = _packed(512, sizes, T * H, dtype, cuda, seed=T)
     h = x.view(len(sizes), 512, T, H).permute(2, 0, 1, 3).contiguous()
     h.requires_grad_(True)
-    before = dict(sized_spmm.launches)
-    got = sized_spmm.aggregate_sized_shared(graph, h)
+    with counted() as c:
+        got = sized_spmm.aggregate_sized_shared(graph, h)
     torch.cuda.synchronize()
-    assert sized_spmm.launches["fwd"] == before["fwd"] + 1
+    assert c[sized_spmm.LAUNCHES["fwd"]] == 1
     assert got.shape == h.shape and got.dtype == dtype
     plain = sized_spmm.sized_plain(*graph.csr("fwd"),
                                    h.detach().permute(1, 2, 0, 3)
@@ -118,9 +119,9 @@ def test_shared_call_matches_plain_and_separate_launches(cuda, T, H, dtype):
                                                      h[t].detach()))
     w = torch.from_numpy(np.random.RandomState(T).randint(
         -4, 5, tuple(h.shape)).astype(np.float32)).to(cuda, dtype)
-    before = dict(sized_spmm.launches)
-    (g,) = torch.autograd.grad((got * w).float().sum(), h)
-    assert sized_spmm.launches["bwd"] == before["bwd"] + 1
+    with counted() as c:
+        (g,) = torch.autograd.grad((got * w).float().sum(), h)
+    assert c[sized_spmm.LAUNCHES["bwd"]] == 1
     for t in range(T):
         assert torch.equal(g[t], sized_spmm.launch("bwd", graph, w[t]))
 
@@ -153,9 +154,9 @@ def test_double_backward_matches_plain(cuda):
             w = w - 0.1 * g
         return torch.autograd.grad(agg(graph, h * w).sum(), w0)[0]
 
-    before = dict(sized_spmm.launches)
-    got = meta_grad(sized_spmm.aggregate_sized)
-    assert all(sized_spmm.launches[k] > before[k] for k in before)
+    with counted() as c:
+        got = meta_grad(sized_spmm.aggregate_sized)
+    assert all(c.of(sized_spmm.LAUNCHES).values())
     want = meta_grad(plain)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
 
@@ -220,9 +221,9 @@ def test_compact_steps_equal_streaming_steps(cuda):
     for rows in idx_mat:
         ref.train_step(take_tasks(pool, rows))
     ml.set_task_pool_compact(pool)
-    before = dict(sized_spmm.launches)
-    m = ml.train_steps_from_compact(idx_mat)
-    assert all(sized_spmm.launches[k] > before[k] for k in before)
+    with counted() as c:
+        m = ml.train_steps_from_compact(idx_mat)
+    assert all(c.of(sized_spmm.LAUNCHES).values())
     assert m["meta_loss"].shape == (2,) and m["accs"].shape == (2, 3)
     for a, b in zip(ml.params, ref.params):
         assert torch.equal(a, b)
@@ -233,9 +234,9 @@ def test_repacked_compact_steps_add_no_sync_and_match_the_slot_layout(
         cuda, arch):
     """A compact-pool call repacks each step's sets into one bin per task
     (data/repack.py) without a device-to-host sync, and agrees within
-    float32 rounding with the slot layout: the same pool resident as
-    device tensors, whose live counts the host does not hold, so that
-    nothing is repacked there."""
+    float32 rounding with the slot layout: streamed steps of the same
+    tasks as device tensors, whose live counts the host does not hold, so
+    that nothing is repacked there."""
     from gmeta_tpu_torch.data import repack
     from gmeta_tpu_torch.meta.maml import batch_to
     store, ds = _tiny()
@@ -253,23 +254,25 @@ def test_repacked_compact_steps_add_no_sync_and_match_the_slot_layout(
         return ml
     ml, ref = learner(), learner()
     ml.set_task_pool_compact(pool)
-    ref.set_task_pool(batch_to(pool, cuda))
+
+    def streamed(rows):
+        return ref.train_step(batch_to(take_tasks(pool, rows), cuda))
     start = [p.detach().clone() for p in ml.params]
     # the first step builds the kernels and warms the libraries
     ml.train_steps_from_compact(idx_mat[:1])
-    ref.train_steps_from_pool(idx_mat[:1])
+    streamed(idx_mat[0])
     torch.cuda.synchronize()
-    before = dict(repack.tally)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        m = ml.train_steps_from_compact(idx_mat[1:])
+        with counted() as c:
+            m = ml.train_steps_from_compact(idx_mat[1:])
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    counted = {k: repack.tally[k] - before[k] for k in before}
-    assert 0 < counted["live"] <= counted["rows"] < counted["slots"]
-    want = ref.train_steps_from_pool(idx_mat[1:])
-    torch.testing.assert_close(m["meta_loss"], want["meta_loss"],
-                               rtol=1e-5, atol=1e-6)
+    n = c.of(repack.TALLY)
+    assert 0 < n["live"] <= n["rows"] < n["slots"]
+    want = streamed(idx_mat[1])["meta_loss"]
+    torch.testing.assert_close(m["meta_loss"], want[None], rtol=1e-5,
+                               atol=1e-6)
     for i, (a, b) in enumerate(zip(ml.params, ref.params)):
         if i == len(start) - 1:
             # the head bias's meta-gradient is rounding noise that Adam
@@ -320,15 +323,15 @@ def test_bf16_forward_on_cuda_matches_cpu(cuda):
     for device in ("cpu", cuda):
         sg = batch_to(batch, device).spt
         feats = torch.from_numpy(store.features).to(device)
-        before = {k: dict(v) for k, v in sized_spmm.launches_by_dtype.items()}
         col = []
-        logits = gcn.forward(tuple(p.to(device) for p in params), sg, feats,
-                             spec, compute_dtype=torch.bfloat16, agg="sized",
-                             collect=col)
+        with counted() as n:
+            logits = gcn.forward(tuple(p.to(device) for p in params), sg,
+                                 feats, spec, compute_dtype=torch.bfloat16,
+                                 agg="sized", collect=col)
         torch.cuda.synchronize()
         runs.append(([c.cpu() for c in col], logits.cpu()))
-        launched = {k: {d: sized_spmm.launches_by_dtype[k][d] - before[k][d]
-                        for d in v} for k, v in before.items()}
+        launched = {k: n.of(v)
+                    for k, v in sized_spmm.LAUNCHES_BY_DTYPE.items()}
         if device == "cpu":
             assert not any(n for v in launched.values() for n in v.values())
         else:
@@ -391,10 +394,10 @@ def test_trainer_auto_on_cuda_picks_by_the_card_rule(cuda, capsys):
     assert tr.agg == agg_for(ds["train"], cuda, tr.spec, "float32")
     assert tr.agg == "sized" and ds["train"].suggested_agg == "dense"
     assert "by the card's crossover" in capsys.readouterr().out
-    before = dict(sized_spmm.launches)
-    tr.learner.train_step(next(ds["train"].batches(4, shuffle=False)))
+    with counted() as c:
+        tr.learner.train_step(next(ds["train"].batches(4, shuffle=False)))
     torch.cuda.synchronize()
-    assert all(sized_spmm.launches[d] > before[d] for d in before)
+    assert all(c.of(sized_spmm.LAUNCHES).values())
 
 
 # ---- device extractor and remat on the card --------------------------------
@@ -425,11 +428,10 @@ def test_remat_train_step_equals_plain_on_cuda(cuda, first_order):
                          update_step_test=2, seed=5, agg="sized",
                          first_order=first_order, remat=remat, device=cuda)
         ml.set_features(store.features)
-        before = dict(sized_spmm.launches)
-        m = ml.train_step(batch)
+        with counted() as c:
+            m = ml.train_step(batch)
         torch.cuda.synchronize()
-        runs.append((m, ml.params, {k: sized_spmm.launches[k] - before[k]
-                                    for k in before}))
+        runs.append((m, ml.params, c.of(sized_spmm.LAUNCHES)))
     (m0, p0, n0), (m1, p1, n1) = runs
     # recomputation launches the forward kernel again
     assert n1["fwd"] > n0["fwd"] > 0 and n1["bwd"] >= n0["bwd"] > 0
@@ -464,17 +466,18 @@ def test_csr_gather_matches_plain(cuda, H, dtype, n_src, n_dst):
     pair, x = _rect(n_src, n_dst, H, dtype, cuda, seed=H)
     r = torch.from_numpy(np.random.RandomState(H + 1).randint(
         -8, 9, (n_dst, H)).astype(np.float32)).to(cuda, dtype)
-    packed = dict(sized_spmm.launches)
-    for count, (row_ptr, col), table, rows in (
+    packed = counted()
+    for direction, (row_ptr, col), table, rows in (
             ("fwd", (pair.row_ptr, pair.col), x, n_dst),
             ("bwd", (pair.row_ptr_t, pair.col_t), r, n_src)):
-        before = sized_spmm.csr_launches[count]
-        got = sized_spmm.csr_gather(row_ptr, col, table, count)
+        with counted() as c:
+            got = sized_spmm.csr_gather(row_ptr, col, table, direction)
         torch.cuda.synchronize()
-        assert sized_spmm.csr_launches[count] == before + 1
+        assert c[sized_spmm.CSR_LAUNCHES[direction]] == 1
         assert got.shape == (rows, H) and got.dtype == dtype
         assert torch.equal(got, sized_spmm.csr_plain(row_ptr, col, table))
-    assert sized_spmm.launches == packed       # the packed counts stay
+    # the packed counts stay
+    assert packed.of(sized_spmm.LAUNCHES) == {"fwd": 0, "bwd": 0}
 
 
 def test_csr_agg_backward_and_double_backward_match_plain(cuda):
@@ -493,9 +496,9 @@ def test_csr_agg_backward_and_double_backward_match_plain(cuda):
             w = w - 0.1 * g
         return torch.autograd.grad(agg(x * w).sum(), w0)[0]
 
-    before = dict(sized_spmm.csr_launches)
-    got = meta_grad(lambda t: sized_spmm.CsrAgg.apply(pair, t))
-    assert all(sized_spmm.csr_launches[k] > before[k] for k in before)
+    with counted() as c:
+        got = meta_grad(lambda t: sized_spmm.CsrAgg.apply(pair, t))
+    assert all(c.of(sized_spmm.CSR_LAUNCHES).values())
     torch.testing.assert_close(got, meta_grad(plain), rtol=1e-4, atol=1e-6)
     # the first gradient, exactly (small integers): A^T r gathered over the
     # source CSR
@@ -545,11 +548,11 @@ def test_full_graph_body_matches_plain_on_long_rows(cuda, monkeypatch, H,
     want = sized_spmm.csr_plain(pair.row_ptr, pair.col, x)
     for slab in (None, 8, 24, 48):
         _slabs(monkeypatch, slab)
-        before = dict(sized_spmm.combine_launches)
-        got = sized_spmm.csr_gather(pair.row_ptr, pair.col, x, "fwd",
-                                    pair.split)
+        with counted() as c:
+            got = sized_spmm.csr_gather(pair.row_ptr, pair.col, x, "fwd",
+                                        pair.split)
         torch.cuda.synchronize()
-        assert sized_spmm.combine_launches["fwd"] == before["fwd"] + 1
+        assert c[sized_spmm.COMBINE_LAUNCHES["fwd"]] == 1
         assert got.dtype == dtype and torch.equal(got, want), slab
     # the transpose: rows of about (100,000 + ...) / 2000 edges, unsplit
     r = _ints((9, H), cuda, dtype, seed=H + 2)
@@ -634,9 +637,9 @@ def test_split_rows_backward_and_double_backward_at_narrow_slabs(
             w = w - 0.1 * g
         return torch.autograd.grad(agg(x * w).sum(), w0)[0]
 
-    before = dict(sized_spmm.combine_launches)
-    got = meta_grad(lambda t: sized_spmm.CsrAgg.apply(pair, t))
-    assert sized_spmm.combine_launches["fwd"] > before["fwd"]
+    with counted() as c:
+        got = meta_grad(lambda t: sized_spmm.CsrAgg.apply(pair, t))
+    assert c[sized_spmm.COMBINE_LAUNCHES["fwd"]] > 0
     want = meta_grad(lambda t: sized_spmm.csr_plain(pair.row_ptr, pair.col,
                                                     t))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
@@ -684,10 +687,10 @@ def _combine_checked(split, partial, out):
     """The kernel into a copy of out (a sentinel fill), held bitwise
     against combine_plain on the CPU (chunk order, one rounding; rows not
     split left as they were), one launch counted; returns its result."""
-    before = dict(sized_spmm.combine_launches)
-    got = sized_spmm.csr_combine(split, partial, out)
+    with counted() as c:
+        got = sized_spmm.csr_combine(split, partial, out)
     torch.cuda.synchronize()
-    assert sized_spmm.combine_launches["fwd"] == before["fwd"] + 1
+    assert c[sized_spmm.COMBINE_LAUNCHES["fwd"]] == 1
     want = sized_spmm.combine_plain(split.to("cpu"), partial.cpu(),
                                     out.new_full(out.shape, 7.0).cpu())
     assert torch.equal(got.cpu(), want)

@@ -21,6 +21,7 @@ from gmeta_tpu_torch.config import Config, build_model_config
 from gmeta_tpu_torch.data.synthetic import synthetic_disjoint
 from gmeta_tpu_torch.meta.maml import MetaLearner
 from gmeta_tpu_torch.ops import epilogue
+from gmeta_tpu_torch.utils.metrics import counted
 
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -116,7 +117,7 @@ def _inputs(shape, dtype, device, bias="H", seed=0, kinks=True):
 def test_cpu_is_the_chain_bitwise_and_launches_nothing(dtype, scale_out,
                                                       bias):
     x, n, b = _inputs((2, 3, 5, 6), dtype, "cpu", bias)
-    before = dict(epilogue.launches)
+    launched = counted()
     for keep_y in (False, True):
         out, y = epilogue.graphconv_epilogue(x, n, b, scale_out, keep_y)
         want, want_y = chain(x, n, b, scale_out, keep_y)
@@ -133,7 +134,7 @@ def test_cpu_is_the_chain_bitwise_and_launches_nothing(dtype, scale_out,
                                (xg, bg))
     for a, w in zip(got, want):
         same_bits(a, w)
-    assert epilogue.launches == before
+    assert launched.of(epilogue.LAUNCHES) == {"fwd": 0, "bwd": 0}
 
 
 # ---- the card's route (emulated on the CPU, the kernels on CUDA) ----------
@@ -239,9 +240,9 @@ def test_route_meta_steps_are_the_chains_bits(route, dtype, first_order,
         return [t.detach().clone() for t in
                 (*ml.params, *ml.opt_state.mu, *ml.opt_state.nu)]
 
-    before = dict(epilogue.launches)
-    got = run()
-    launched = {k: epilogue.launches[k] - before[k] for k in before}
+    with counted() as c:
+        got = run()
+    launched = c.of(epilogue.LAUNCHES)
     monkeypatch.setattr(epilogue, "graphconv_epilogue", chain)
     want = run()
     for a, w in zip(got, want):
@@ -303,13 +304,12 @@ def test_misaligned_tensors_take_the_scalar_path(cuda, dtype):
 @pytest.mark.cuda
 def test_launch_counter_counts_each_kernel(cuda):
     x, n, b = _inputs((2, 2, 4, 8), torch.float32, cuda)
-    before = dict(epilogue.launches)
-    epilogue.graphconv_epilogue(x, n, b, True)
-    xg = x.clone().requires_grad_()
-    out, _ = epilogue.graphconv_epilogue(xg, n, b, True)
-    out.sum().backward()
-    assert {k: epilogue.launches[k] - before[k] for k in before} == \
-        {"fwd": 2, "bwd": 1}
+    with counted() as c:
+        epilogue.graphconv_epilogue(x, n, b, True)
+        xg = x.clone().requires_grad_()
+        out, _ = epilogue.graphconv_epilogue(xg, n, b, True)
+        out.sum().backward()
+    assert c.of(epilogue.LAUNCHES) == {"fwd": 2, "bwd": 1}
 
 
 @pytest.mark.cuda

@@ -475,10 +475,11 @@ def test_launches_stay_put_on_the_cpu(inputs):
     feats, spt, _ = inputs
     spec, params = _params(_cfg("2x4_3x3"))
     sg = batch_to(TaskBatch(spt, spt), "cpu").spt
-    before = dict(gat_attention.launches)
-    out = gat.forward([p.requires_grad_() for p in params], sg, feats, spec)
-    torch.autograd.grad(out.sum(), params)
-    assert gat_attention.launches == before
+    with metrics.counted() as c:
+        out = gat.forward([p.requires_grad_() for p in params], sg, feats,
+                          spec)
+        torch.autograd.grad(out.sum(), params)
+    assert c.of(gat_attention.LAUNCHES) == {"fwd": 0, "bwd": 0}
 
 
 def test_bench_gat_main_writes_its_json(tmp_path):

@@ -18,6 +18,7 @@ from gmeta_tpu_torch.ops import gat_attention
 from gmeta_tpu_torch.ops.gat_attention import (Attention, attend, attn_graph,
                                                bwd_plain, fwd_plain)
 from gmeta_tpu_torch.scripts.bench_gat import packed_graph
+from gmeta_tpu_torch.utils.metrics import counted
 
 pytestmark = pytest.mark.cuda
 
@@ -104,11 +105,10 @@ def test_the_autograd_function_runs_the_kernels(cuda):
     graph = _graph(2, 2, 16, 11, 3.0, cuda)
     K, F = 2, 4
     zst = _zst(64, K, F, cuda).requires_grad_()
-    before = dict(gat_attention.launches)
-    out = attend(graph, zst, K, F)
-    (dz,) = torch.autograd.grad(out.square().sum(), zst)
-    assert gat_attention.launches["fwd"] == before["fwd"] + 1
-    assert gat_attention.launches["bwd"] == before["bwd"] + 3
+    with counted() as c:
+        out = attend(graph, zst, K, F)
+        (dz,) = torch.autograd.grad(out.square().sum(), zst)
+    assert c.of(gat_attention.LAUNCHES) == {"fwd": 1, "bwd": 3}
     cpu = attn_graph(*_edges_cpu(graph), 4, 16)   # 2 tasks x 2 bins
     zc = zst.detach().cpu().requires_grad_()
     (want,) = torch.autograd.grad(
@@ -166,9 +166,8 @@ def test_launches_of_one_meta_step(cuda):
             .expand(T, S, 2).int().numpy().copy(),
             labels=(torch.arange(S) % 2).expand(T, S).int().numpy().copy(),
             bin_fill=torch.full((T, B), 11).int().numpy())
-    before = dict(gat_attention.launches)
-    m = ml.train_step(TaskBatch(one_set(4), one_set(6)))
+    with counted() as c:
+        m = ml.train_step(TaskBatch(one_set(4), one_set(6)))
     torch.cuda.synchronize()
     assert torch.isfinite(m["meta_loss"])
-    assert gat_attention.launches["fwd"] - before["fwd"] == 3 * 6
-    assert gat_attention.launches["bwd"] - before["bwd"] == 3 * 4 * 3
+    assert c.of(gat_attention.LAUNCHES) == {"fwd": 3 * 6, "bwd": 3 * 4 * 3}

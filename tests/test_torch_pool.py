@@ -147,37 +147,32 @@ def test_decoding_matches_jax_and_batch_to(chunks, jax_learner, case):
                     assert torch.equal(a, b), name
 
 
-def _learner(ds):
+def _learner(ds, agg="sized"):
     store = ds["train"].store
     ml = MetaLearner(build_model_config(Config(hidden_dim=8), store.feat_dim,
                                         3), 3,
                      update_lr=0.05, meta_lr=1e-3, update_step=2,
-                     update_step_test=2, seed=5, agg="sized", device="cpu")
+                     update_step_test=2, seed=5, agg=agg, device="cpu")
     ml.set_features(store.features)
     return ml
 
 
-@pytest.mark.parametrize("mode", ["pool", "pool_step", "compact", "window"])
-def test_pool_entry_points_match_single_steps(mode):
+@pytest.mark.parametrize("agg", ["sized", "dense"])
+@pytest.mark.parametrize("mode", ["compact", "window"])
+def test_pool_entry_points_match_single_steps(mode, agg):
     """Each K-step entry point = K train_steps on the same batches, bit for
-    bit, with the per-step metrics stacked along a leading axis."""
+    bit, with the per-step metrics stacked along a leading axis: repacked
+    on the CSR path, in the slot layout on the dense one."""
     store, ds = synthetic_disjoint(**DATA)
     pool = ds["train"].stacked_pool()
     idx_mat = np.random.RandomState(2).permutation(len(ds["train"]))[
         :K * T].reshape(K, T)
-    ref = _learner(ds)
+    ref = _learner(ds, agg)
     ms = [ref.train_step(_take(pool, rows)) for rows in idx_mat]
     want = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
-    ml = _learner(ds)
-    if mode == "pool":
-        ml.set_task_pool(pool)
-        got = ml.train_steps_from_pool(idx_mat)
-    elif mode == "pool_step":
-        ml.set_task_pool(pool)
-        ms = [ml.train_step_from_pool(rows) for rows in idx_mat]
-        got = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
-    elif mode == "compact":
+    ml = _learner(ds, agg)
+    if mode == "compact":
         ml.set_task_pool_compact(pool)
         assert ml.compact_pool_device_bytes() \
             == MetaLearner.compact_pool_bytes(pool)

@@ -22,6 +22,7 @@ from gmeta_tpu_torch.meta.maml import MetaLearner, batch_to
 from gmeta_tpu_torch.meta.protonet import proto_loss_spt
 from gmeta_tpu_torch.models import module_for
 from gmeta_tpu_torch.run.train import Trainer
+from gmeta_tpu_torch.utils.metrics import counted
 
 torch.set_num_threads(2)
 
@@ -202,9 +203,9 @@ def test_repacked_sets_give_the_slot_layouts_numbers(data, case):
     ml, ref = _learner(spec, dtype), _learner(spec, dtype)
     for m in (ml, ref):
         m.set_features(feats.numpy())
-    before = dict(repack.tally)
-    m1 = ml.train_step(batch)
-    assert repack.tally["rows"] > before["rows"]
+    with counted() as c:
+        m1 = ml.train_step(batch)
+    assert c[repack.TALLY["rows"]] > 0
     m0 = ref.train_step(batch_to(batch, "cpu"))
     _close(m1["meta_loss"], m0["meta_loss"], torch.float32, "meta_loss")
     for i, (a, b) in enumerate(zip(ref.params, ml.params)):
@@ -228,6 +229,12 @@ def test_a_repacked_set_repacks_to_itself(data):
         assert a is b
 
 
+# the repack counts of one step over tasks 0, 2 and 2 of `_pool`
+STEP_0_2_2 = {"slots": 120, "rows": 3 * (repack.bin_rows([12, 6])
+                                         + repack.bin_rows([12, 13])),
+              "live": 12 + 6 + 6 + 12 + 13 + 13}
+
+
 @pytest.mark.parametrize("arch", ["gcn", "gat"])
 def test_tally_counts_slots_rows_and_live_exactly(data, arch):
     feats, batch = data
@@ -241,25 +248,32 @@ def test_tally_counts_slots_rows_and_live_exactly(data, arch):
             "live": int(sum(n.sum() for n in live))}
     assert step == {"slots": 120, "rows": 3 * (16 + 16), "live": 59}
 
-    def counted(fn):
-        before = dict(repack.tally)
-        fn()
-        return {k: repack.tally[k] - before[k] for k in before}
-    assert counted(lambda: ml.train_step(batch)) == step
-    assert counted(lambda: ml.finetune_batch(batch)) == step
+    def tally(fn):
+        with counted() as c:
+            fn()
+        return c.of(repack.TALLY)
+    assert tally(lambda: ml.train_step(batch)) == step
+    assert tally(lambda: ml.finetune_batch(batch)) == step
     # a K-step call counts each step's tasks
-    pool = _pool(batch)
+    ml.set_task_pool_compact(_pool(batch))
     idx = np.array([[0, 1, 2], [5, 4, 3]])
-    ml.set_task_pool_compact(pool)
-    assert counted(lambda: ml.train_steps_from_compact(idx)) == {
+    assert tally(lambda: ml.train_steps_from_compact(idx)) == {
         k: 2 * v for k, v in step.items()}
-    one = np.array([[0, 2, 2]])
-    want = {"slots": 120,
-            "rows": 3 * (repack.bin_rows([12, 6]) + repack.bin_rows([12, 13])),
-            "live": 12 + 6 + 6 + 12 + 13 + 13}
-    assert counted(lambda: ml.train_steps_from_compact(one)) == want
-    ml.set_task_pool(pool)
-    assert counted(lambda: ml.train_step_from_pool([0, 2, 2])) == want
+    assert tally(lambda: ml.train_steps_from_compact([[0, 2, 2]])) == \
+        STEP_0_2_2
+
+
+def test_counted_reads_a_compact_calls_repack_counts_by_name(data):
+    """The registry's table holds the repack's counts under their dotted
+    names: a compact call's deltas are the tally test's numbers."""
+    feats, batch = data
+    ml = _learner(_spec("gcn", False), torch.float32)
+    ml.set_features(feats.numpy())
+    ml.set_task_pool_compact(_pool(batch))
+    with counted() as c:
+        ml.train_steps_from_compact([[0, 2, 2]])
+    assert {k: c[f"repack.{k}"] for k in STEP_0_2_2} == STEP_0_2_2
+    assert repack.TALLY == {k: f"repack.{k}" for k in STEP_0_2_2}
 
 
 @pytest.mark.parametrize("link", [False, True])
@@ -276,9 +290,9 @@ def test_dense_path_keeps_the_slot_layout_bitwise(data, link):
     for a, b in zip(ml._decode(batch, live), batch_to(batch, "cpu")):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
-    before = dict(repack.tally)
-    m1 = ml.train_step(batch)
-    assert repack.tally == before
+    with counted() as c:
+        m1 = ml.train_step(batch)
+    assert c.of(repack.TALLY) == {"slots": 0, "rows": 0, "live": 0}
     m0 = ref.train_step(batch_to(batch, "cpu"))
     for k in m0:
         assert torch.equal(m1[k], m0[k]), k

@@ -2,7 +2,7 @@
 package's (scripts/bench_*.py): their synthetic data drawn bitwise alike
 (but for the two repaired entries of `synth_bucket`), the aggregation
 paths they time against the JAX package's on one bucket, bench_transfer's
-pool and stream steps against each other and against the JAX
+compact pool and stream steps against each other and against the JAX
 MetaLearner, each script's main() on the CPU at a tiny size, and the
 shared bounds of utils/cardtime.py; and the port's own: bench_kernels'
 crossover sweep, its count of a meta-step's aggregation calls against
@@ -188,9 +188,9 @@ def _clamped(batch):
 
 @pytest.mark.parametrize("agg", ["sized", "dense"])
 def test_transfer_steps_match_each_other_and_jax(agg):
-    """bench_transfer's pool step and stream step give the same meta_loss
-    from the same theta, and it equals the JAX MetaLearner's train_step on
-    the same batch from the same params, at tiny widths."""
+    """bench_transfer's compact pool step and stream step give the same
+    meta_loss from the same theta, and it equals the JAX MetaLearner's
+    train_step on the same batch from the same params, at tiny widths."""
     T, n_feat, feat_dim, hidden, steps = 2, 60, 6, 8, 2
     rng = np.random.RandomState(0)
     learner = bench_transfer.make_learner(feat_dim, hidden, steps, agg,

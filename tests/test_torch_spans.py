@@ -3,8 +3,9 @@ is recorded, nor allocated, without an active profiler; under one, a
 compact-pool call records each meta-step as a `step` whose children are its
 phases in order, remat's recomputation sits under the meta-gradient's
 `outer`, the `agg` spans count the calls `count_aggregation` tallies, and
-the results are the same bits with and without the profiler. CPU, tiny
-sizes; imports neither jax nor the JAX package."""
+the results are the same bits with and without the profiler; `counted`
+marks of the count table nest. CPU, tiny sizes; imports neither jax nor
+the JAX package."""
 
 import tracemalloc
 
@@ -195,6 +196,22 @@ def test_summary_counts_each_name_and_its_time_once():
     assert out["steps"] == 2
     assert out["count"] == {"step": 2, "outer": 3, "agg": 1}
     assert out["ms_per_step"] == {"step": 11.0, "outer": 7.0, "agg": 0.25}
+
+
+def test_counted_nests_and_gives_each_name_its_own_delta():
+    metrics.count("test.a", 2)
+    with metrics.counted() as outer:
+        metrics.count("test.a")
+        with metrics.counted() as inner:
+            metrics.count("test.b", 0.5)
+            metrics.count("test.a", 3)
+            assert inner["test.a"] == 3        # read while it runs
+        metrics.count("test.b")
+    metrics.count("test.a", 10)                # after both bodies
+    assert inner.of({"a": "test.a", "b": "test.b"}) == {"a": 3, "b": 0.5}
+    assert outer.of({"a": "test.a", "b": "test.b", "c": "test.c"}) == \
+        {"a": 4, "b": 1.5, "c": 0}
+    assert metrics.counts()["test.a"] >= 16    # nothing was reset
 
 
 def test_threads_keep_their_own_stacks_under_contention(monkeypatch):

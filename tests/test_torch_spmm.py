@@ -22,6 +22,7 @@ from gmeta_tpu_torch.ops.sized_spmm import (aggregate_sized,
                                             sized_plain)
 from gmeta_tpu_torch.ops.spmm import (aggregate_dense, degrees_from_dense,
                                       densify)
+from gmeta_tpu_torch.utils.metrics import counted
 
 torch.set_num_threads(2)
 
@@ -331,10 +332,10 @@ def test_kernel_counter_untouched_on_cpu_and_other_devices_raise():
     src, dst, mask = _packed_edges([[100, 128]], 128)
     g = _graph(src, dst, mask, 2, 128)
     h = torch.randn(2, 128, 4)
-    before = dict(sized_spmm.launches)
-    aggregate_sized(g, h)
-    aggregate_sized_t(g, h)
-    assert sized_spmm.launches == before       # the plain version ran
+    with counted() as c:
+        aggregate_sized(g, h)
+        aggregate_sized_t(g, h)
+    assert c.of(sized_spmm.LAUNCHES) == {"fwd": 0, "bwd": 0}   # the plain version ran
     meta = sized_spmm.SizedGraph(*(t.to("meta") for t in g))
     with pytest.raises(ValueError, match="cpu or cuda"):
         sized_spmm.launch("fwd", meta, h.to("meta"))

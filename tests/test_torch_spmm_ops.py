@@ -12,6 +12,7 @@ import torch
 from gmeta_tpu.ops import spmm as jspmm
 from gmeta_tpu_torch.ops import sized_spmm as sp
 from gmeta_tpu_torch.ops import spmm
+from gmeta_tpu_torch.utils.metrics import counted
 
 torch.set_num_threads(2)
 
@@ -146,9 +147,9 @@ def test_csr_gather_matches_segment_sum():
     pair = sp.csr_pair(src, dst, n_src, n_dst)
     assert pair.row_ptr.shape == (n_dst + 1,)
     assert pair.row_ptr_t.shape == (n_src + 1,)
-    before = dict(sp.csr_launches)
-    got = sp.csr_gather(pair.row_ptr, pair.col, torch.from_numpy(x))
-    assert sp.csr_launches == before           # the CPU runs no kernel
+    with counted() as c:
+        got = sp.csr_gather(pair.row_ptr, pair.col, torch.from_numpy(x))
+    assert c.of(sp.CSR_LAUNCHES) == {"fwd": 0, "bwd": 0}   # the CPU runs no kernel
     assert got.shape == (n_dst, x.shape[1])
     np.testing.assert_allclose(
         got.numpy(), np.asarray(_segment_sum(jnp.asarray(x), src, dst,
