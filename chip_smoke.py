@@ -215,20 +215,23 @@ Phases; any failure raises and the script exits non-zero:
                 shapes as the CSR path runs them: (a) 16 tasks x 16 bins
                 (query) and x 6 bins (support) of 1024 slots, 586 live,
                 repacked into one bin of M rows a task (9,376 and 3,520;
-                bench_gat.packed_graph), the cell's real edges,
-                heads of 4 x 256 and 6 x 121: the wrapper `attend` and
-                the autograd Function on the card against `fwd_plain` and
-                `bwd_plain` (one forward and three backward launches a
-                call; o and the gradient's z, s and t parts within rtol
-                1e-4, atol 2e-5 of each tensor's largest magnitude);
-                (b) one meta-step of the cell's configuration (the
-                tissue_ppi preset with arch 'gat', 16 tasks, float32) on a
-                batch of its geometry, after a warm step, launch counts
-                set to 0 just before and read just after: 3 layers x
-                (2 U + 2) forwards and x (U + 2) backwards of 3 kernels;
-                its seconds and peak memory; (c) bench_gat: each
-                direction's kernels timed at both repacked sets and widths
-                beside `attention_bound` and the plain versions.
+                bench_gat.packed_graph, each original bin's rows a
+                segment), the cell's real edges, heads of 4 x 256 and
+                6 x 121: the wrapper `attend` and the autograd Function
+                on the card, staged, against `fwd_plain` and `bwd_plain`
+                (one forward and three backward launches a call, all
+                staged; o and the gradient's z, s and t parts within rtol
+                1e-4, atol 2e-5 of each tensor's largest magnitude), and
+                the staged forward's o and lse bit for bit the walk
+                kernel's; (b) one meta-step of the cell's configuration
+                (the tissue_ppi preset with arch 'gat', 16 tasks,
+                float32) on a batch of its geometry, after a warm step,
+                launch counts set to 0 just before and read just after:
+                3 layers x (2 U + 2) forwards and x (U + 2) backwards of
+                3 kernels, every one staged; its seconds and peak memory;
+                (c) bench_gat: each direction's staged and walk kernels
+                timed at both repacked sets and widths beside
+                `attention_bound` and the plain versions.
 
 Phase 2 builds the CUDA kernels (nvcc) and the host extraction engine (g++)
 at once. Prints phase 11's parity JSON line, phase 14's bench JSON line,
@@ -2556,9 +2559,11 @@ def check_gat(device):
     """Phase 15(a): the wrapper `attend` and the autograd Function on the
     card against `fwd_plain` and `bwd_plain` at the cell's set shapes
     (bench_gat.SHAPES: 16 tasks x 16 or 6 bins x 1024 slots, repacked
-    into one bin of M rows a task as the CSR path runs them) and both
-    head widths (4 x 256, 16-byte lanes; 6 x 121, one float a lane): one
-    forward and three backward launches a call; o, and the gradient of
+    into one bin of M rows a task as the CSR path runs them, each
+    original bin's rows a segment) and both head widths (4 x 256, 16-byte
+    copies; 6 x 121, 4-byte ones): one forward and three backward
+    launches a call, all staged, and the staged forward's o and lse the
+    walk kernel's bits; o, and the gradient of
     zst's z, s and t, within rtol 1e-4 and atol 2e-5 of each tensor's
     largest magnitude (float32 sums of a row's ~11 terms, and of F
     products, in another order; g . z - D cancels). A row averages ~11
@@ -2569,7 +2574,8 @@ def check_gat(device):
     import torch
 
     from gmeta_tpu_torch.ops import gat_attention as ga
-    from gmeta_tpu_torch.scripts.bench_gat import HEADS, SHAPES, packed_graph
+    from gmeta_tpu_torch.scripts.bench_gat import (HEADS, SHAPES,
+                                                   packed_graph, walk)
     errs = {}
     for name, (T, B, P, live, edges) in SHAPES.items():
         graph = packed_graph(T, B, P, live, edges, device, repacked=True)
@@ -2584,8 +2590,14 @@ def check_gat(device):
                 o = ga.attend(graph, x, K, F)
                 (dzst,) = torch.autograd.grad(o, x, g)
                 torch.cuda.synchronize()
-            assert c.of(ga.LAUNCHES) == {"fwd": 1, "bwd": 3}, \
-                (name, K, F, c.of(ga.LAUNCHES))
+            assert c.of(ga.LAUNCHES) == c.of(ga.STAGED) == \
+                {"fwd": 1, "bwd": 3}, (name, K, F, c.of(ga.LAUNCHES),
+                                       c.of(ga.STAGED))
+            staged = ga._launch_fwd(graph, zst, K, F)
+            walked = ga._launch_fwd(walk(graph), zst, K, F)
+            assert all(torch.equal(a, b) for a, b in zip(staged, walked)), \
+                (name, K, F, "the staged forward is not the walk's bits")
+            del staged, walked
             want_o, lse = ga.fwd_plain(graph, zst, K, F)
             want = ga.bwd_plain(graph, zst, want_o, lse, g, K, F)
             row = {}
@@ -2653,7 +2665,8 @@ def gat_step(device):
     got = c.of(ga.LAUNCHES)
     U, layers = cfg.update_step, len(spec) - 1
     want = {"fwd": layers * (2 * U + 2), "bwd": layers * 3 * (U + 2)}
-    assert math.isfinite(loss) and got == want, (loss, got, want)
+    assert math.isfinite(loss) and got == want == c.of(ga.STAGED), \
+        (loss, got, want, c.of(ga.STAGED))
     rows = c[repack.TALLY["rows"]]
     assert rows == sum(cfg.task_num * repack.bin_rows(
         repack.live_counts(sg.bin_fill)) for sg in batch), rows
@@ -3034,12 +3047,16 @@ def main():
             "bound_ms": head[f"{direction}_bound_ms"],
             "bound_by": head[f"{direction}_bound"],
             "share": head[f"{direction}_share"],
+            "walk_ms": head[f"walk_{direction}_ms"],
+            "walk_share": head[f"walk_{direction}_share"],
             "plain_ms": head[f"{direction}_plain_ms"],
             "shape": f"16 x 16 x 1024 repacked into {head['rows']} "
-                     f"rows, 4 x 256 heads, float32",
+                     f"rows, 4 x 256 heads, float32, staged",
             "by_set_heads": {
                 k: {x: r[f"{direction}_{x}"]
                     for x in ("ms", "bound_ms", "share", "plain_ms")}
+                | {f"walk_{x}": r[f"walk_{direction}_{x}"]
+                   for x in ("ms", "share")}
                 for k, r in rows.items()},
         })
     log(json.dumps({"kernels": kernels}))

@@ -26,9 +26,16 @@ layout: the dense aggregation multiplies a (P, P) block per bin.
 The counts `TALLY` names (utils/metrics.py) add up, from host numbers
 only, each repacked set's `slots` before (T*B*P), its `rows` after (T*M)
 and its `live` nodes.
+
+`segments` gives the repacked set's ranges of rows that no real edge
+leaves, for the GAT's staged attention (ops/gat_attention.py): each
+original bin's live rows, then the task's tail of padding in pieces, with
+the host's bound on their length.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -98,6 +105,36 @@ def repack(sg: SubgraphSet, M: int, live) -> SubgraphSet:
             :, None], edge_src=edge_src, edge_dst=edge_dst,
         edge_mask=sg.edge_mask, centers=centers, labels=sg.labels,
         bin_fill=end[:, -1:].to(sg.bin_fill.dtype))
+
+
+class Segments(NamedTuple):
+    """Ranges of a (T, 1, M) set's rows that no real edge leaves: range q
+    of task t runs from start[t, q] to start[t, q + 1] (the last to M)."""
+    start: torch.Tensor   # (T, n) int32 on the set's device, nondecreasing
+    rows: int             # host: no range holds more rows
+
+
+def segments(bin_fill: torch.Tensor, M: int, fills) -> Segments:
+    """The Segments of `repack(sg, M, ...)`, from the set's bin fills
+    before the repack, (T, B) on the device and `fills` the same on the
+    host: each original bin's live rows (the repack keeps them contiguous,
+    in bin order, and edges never leave a bin), then each task's padding
+    from its live count to M in pieces of at most `rows` rows, `rows` the
+    largest fill (at least 1). Pieces past M are empty. Nothing waits for
+    the device."""
+    fills = np.asarray(fills, dtype=np.int64)
+    if fills.shape != tuple(bin_fill.shape):
+        raise ValueError(f"host fills of shape {fills.shape} for a set of "
+                         f"{tuple(bin_fill.shape)} bins")
+    rows = max(int(fills.max(initial=0)), 1)
+    pad = M - int(fills.sum(axis=-1).min(initial=M))
+    fill = bin_fill.to(torch.int32)
+    end = torch.cumsum(fill, dim=1, dtype=torch.int32)
+    start = [end - fill]
+    if pad > 0:
+        start.append(end[:, -1:] + rows * torch.arange(
+            -(-pad // rows), device=fill.device, dtype=torch.int32))
+    return Segments(torch.cat(start, dim=1).clamp_(max=M), rows)
 
 
 def repack_batch(batch: TaskBatch, rows, live) -> TaskBatch:

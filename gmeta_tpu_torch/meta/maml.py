@@ -44,7 +44,9 @@ pool and window modes:
 - on the CSR path (agg="sized") every decoded step runs repacked, each
   task's live slots in one bin (data/repack.py), so no layer computes the
   pad slots; the row count comes from bin fills the host already holds
-  (the pools' and windows' own), never from the device.
+  (the pools' and windows' own), never from the device. For a GAT the same
+  fills give each repacked set's segments (data/repack.py `segments`),
+  which the inner loop hands to the attention's graph.
 """
 
 from __future__ import annotations
@@ -57,9 +59,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from gmeta_tpu_torch.data.pack import SubgraphSet, TaskBatch
-from gmeta_tpu_torch.data.repack import bin_rows, live_counts, repack_batch
+from gmeta_tpu_torch.data.repack import (bin_rows, live_counts, repack_batch,
+                                         segments)
 from gmeta_tpu_torch.meta.protonet import proto_loss_qry, proto_loss_spt
-from gmeta_tpu_torch.models import module_for
+from gmeta_tpu_torch.models import gat, module_for
 from gmeta_tpu_torch.models.gcn import GCN
 from gmeta_tpu_torch.parallel.collectives import all_reduce_flat, broadcast_
 from gmeta_tpu_torch.parallel.dp import local_tasks
@@ -78,9 +81,11 @@ def make_inner_loop(layer_spec: Sequence[Tuple[str, tuple]],
                     num_steps: int, first_order: bool = True,
                     compute_dtype=torch.float32, remat: bool = False,
                     track_curve: bool = True, agg: str = "dense"):
-    """Returns inner_loop(params, task: TaskBatch, feats) ->
-    (meta_losses (T,), InnerAux). `params` is theta, shared by the T tasks
-    of `task` (fields with a leading task axis, on the device). meta_losses
+    """Returns inner_loop(params, task: TaskBatch, feats, segments=None)
+    -> (meta_losses (T,), InnerAux). `params` is theta, shared by the T tasks
+    of `task` (fields with a leading task axis, on the device); `segments`,
+    for a GAT on repacked sets, their (support, query) data/repack.py
+    `Segments`, which the attention's graph takes. meta_losses
     are the LAST-step query losses (meta.py:161); the accuracy curve has
     num_steps+1 entries with entry 0 the pre-update evaluation
     (meta.py:129-134).
@@ -116,17 +121,19 @@ def make_inner_loop(layer_spec: Sequence[Tuple[str, tuple]],
     model = module_for(layer_spec)
     forward, precompute = model.forward, model.precompute
 
-    def inner_loop(params, task: TaskBatch, feats: torch.Tensor):
+    def inner_loop(params, task: TaskBatch, feats: torch.Tensor,
+                   segments=None):
         T = task.spt.node_gid.shape[0]
         meta = torch.is_grad_enabled() and any(p.requires_grad
                                                for p in params)
         # Adjacency (or edge lists) + norm + the input-feature gather are
         # constant across inner steps: built ONCE here.
         with span("graph"):
-            graph_spt = precompute(task.spt, compute_dtype, feats=feats,
-                                   agg=agg)
-            graph_qry = precompute(task.qry, compute_dtype, feats=feats,
-                                   agg=agg)
+            graph_spt, graph_qry = (
+                precompute(sg, compute_dtype, feats=feats, agg=agg,
+                           **({} if segments is None
+                              else {"segments": segments[i]}))
+                for i, sg in enumerate(task))
 
         def spt(w):
             logits = forward(w, task.spt, feats, layer_spec, graph=graph_spt,
@@ -277,21 +284,23 @@ def take_tasks(batch: TaskBatch, sl) -> TaskBatch:
     return TaskBatch(spt=one(batch.spt), qry=one(batch.qry))
 
 
-def _host_live(batch: TaskBatch):
-    """The tasks' (support, query) live slot counts (T,), where the batch
-    is the host's (numpy); None for tensors, which a learner takes as
-    decoded already (on a device, reading them would wait for it)."""
+def _host_fills(batch: TaskBatch):
+    """The tasks' (support, query) bin fills (T, B), where the batch is
+    the host's (numpy); None for tensors, which a learner takes as decoded
+    already (on a device, reading them would wait for it)."""
     fills = [sg.bin_fill for sg in batch]
     if not all(isinstance(f, np.ndarray) for f in fills):
         return None
-    return tuple(live_counts(f) for f in fills)
+    return tuple(fills)
 
 
-def _take_live(live, rows):
-    """The tasks `rows` (host) of per-task live counts, or None."""
-    if live is None:
+def _take_tasks_of(per_set, rows):
+    """The tasks `rows` of each set's per-task host fills or device
+    Segments, or None."""
+    if per_set is None:
         return None
-    return tuple(n[rows] for n in live)
+    return tuple(x[rows] if isinstance(x, np.ndarray)
+                 else x._replace(start=x.start[rows]) for x in per_set)
 
 
 def _add_task_axis(task: TaskBatch) -> TaskBatch:
@@ -302,10 +311,10 @@ def _add_task_axis(task: TaskBatch) -> TaskBatch:
 
 class Window(NamedTuple):
     """A window buffer on the device (MetaLearner.put_buffer) and its
-    steps' (support, query) live counts on the host, each (K, T), or None
+    steps' (support, query) bin fills on the host, each (K, T, B), or None
     where the buffer came from the device."""
     words: torch.Tensor
-    live: Optional[Tuple[np.ndarray, np.ndarray]]
+    fills: Optional[Tuple[np.ndarray, np.ndarray]]
 
 
 class MetaLearner:
@@ -345,12 +354,14 @@ class MetaLearner:
             layer_spec, proto_classes, update_lr, update_step_test,
             first_order=first_order, compute_dtype=compute_dtype, agg=agg)
         # the CSR path runs over repacked sets (data/repack.py); the dense
-        # path multiplies a (P, P) block per bin and keeps the slot layout
+        # path multiplies a (P, P) block per bin and keeps the slot layout;
+        # a GAT's attention also takes the repacked sets' segments
         self._repacks = agg == "sized"
+        self._segments = self._repacks and module_for(layer_spec) is gat
         self._feats = None
         self._cpool = None        # compact device-resident pool leaves
         self._cmeta = None        # (spt_meta, qry_meta) of the compact pool
-        self._clive = None        # its host live counts (spt, qry), each (N,)
+        self._cfills = None       # its host bin fills (spt, qry), (N, B)
         self._codec = None        # window codec (K, T, spt_meta, qry_meta)
         self._copy_stream = None  # CUDA stream of pinned window copies
 
@@ -399,39 +410,48 @@ class MetaLearner:
         for the device (with a mesh, the collectives may wait). A host
         batch (numpy) runs repacked on the CSR path (`_decode`); a batch of
         tensors runs in the layout it has."""
-        return self._step(lambda: (batch, _host_live(batch)))
+        return self._step(lambda: (batch, _host_fills(batch)))
 
     def _step(self, make, *args):
-        """One meta-step on the batch and host live counts `make(*args)`
+        """One meta-step on the batch and host bin fills `make(*args)`
         gives, made and decoded in the span `decode`."""
         with span("step"):
             with span("decode"):
-                batch = self._decode(*make(*args))
-            return self._train_step(batch)
+                batch, segs = self._decode(*make(*args))
+            return self._train_step(batch, segs)
 
-    def _decode(self, batch: TaskBatch, live, shard: bool = True):
-        """A batch as the model runs it: with a mesh and `shard`, this
-        rank's tasks; on the device; and on the CSR path, where `live` (the
-        tasks' support and query live counts) is known on the host,
-        repacked into one bin per task (data/repack.py). M is the whole
-        batch's, so every rank and every task chunk takes the same. Every
-        entry point gives `live`; a batch of tensors passed to
-        `train_step` has none and runs in its slot layout, which only the
-        tests that hold the two layouts to each other and bench.py's FLOP
-        count (the slot layout's work) use."""
+    def _decode(self, batch: TaskBatch, fills, shard: bool = True):
+        """(batch, segments): the batch as the model runs it: with a mesh
+        and `shard`, this rank's tasks; on the device; and on the CSR path,
+        where `fills` (the tasks' support and query bin fills) are known on
+        the host, repacked into one bin per task (data/repack.py). M is the
+        whole batch's, so every rank and every task chunk takes the same.
+        For a GAT on repacked sets, `segments` are their (support, query)
+        data/repack.py `Segments`, else None. Every entry point gives
+        `fills`; a batch of tensors passed to `train_step` has none and
+        runs in its slot layout, which only the tests that hold the two
+        layouts to each other and bench.py's FLOP count (the slot layout's
+        work) use."""
         rows = None
-        if live is not None and self._repacks:
-            rows = tuple(bin_rows(n) for n in live)
+        if fills is not None and self._repacks:
+            rows = tuple(bin_rows(live_counts(f)) for f in fills)
         if shard and self.mesh is not None:
             sl = local_tasks(batch.spt.node_gid.shape[0], self.mesh.task,
                              self.mesh.t)
-            batch, live = take_tasks(batch, sl), _take_live(live, sl)
+            batch, fills = take_tasks(batch, sl), _take_tasks_of(fills, sl)
         batch = batch_to(batch, self.device)
-        return batch if rows is None else repack_batch(batch, rows, live)
+        if rows is None:
+            return batch, None
+        segs = None
+        if self._segments:
+            segs = tuple(segments(sg.bin_fill, m, f)
+                         for sg, m, f in zip(batch, rows, fills))
+        live = tuple(live_counts(f) for f in fills)
+        return repack_batch(batch, rows, live), segs
 
-    def _train_step(self, batch: TaskBatch):
-        """The meta-step on a decoded batch: the inner loop, then the
-        meta-gradient and the update."""
+    def _train_step(self, batch: TaskBatch, segs=None):
+        """The meta-step on a decoded batch (and its segments, `_decode`):
+        the inner loop, then the meta-gradient and the update."""
         T = batch.spt.node_gid.shape[0]
         if self.mesh is not None:
             T *= self.mesh.task      # the losses are divided by the global T
@@ -442,7 +462,8 @@ class MetaLearner:
         chunks = self._chunks(batch.spt.node_gid.shape[0])
         for i, sl in enumerate(chunks):
             losses, aux = self._train_inner(params, take_tasks(batch, sl),
-                                            self._feats)
+                                            self._feats,
+                                            _take_tasks_of(segs, sl))
             with span("outer"):
                 part = losses.sum() / T
                 for acc, g in zip(grads, grad(part, params)):
@@ -476,7 +497,7 @@ class MetaLearner:
 
     def _train_steps(self, make, items) -> dict:
         """One meta-step per item of the iterable, in order, on the batch
-        and host live counts `make(item)` gives. Returns the per-step
+        and host bin fills `make(item)` gives. Returns the per-step
         metrics stacked along a leading axis (the JAX package's scanned
         `ms`), without waiting for the device."""
         ms = [self._step(make, item) for item in items]
@@ -629,7 +650,7 @@ class MetaLearner:
         spt, m_spt = self._encode_set_leaves(pool.spt)
         qry, m_qry = self._encode_set_leaves(pool.qry)
         self._cmeta = (m_spt, m_qry)
-        self._clive = _host_live(pool)
+        self._cfills = _host_fills(pool)
         self._cpool = tuple(tuple(torch.from_numpy(l).to(self.device)
                                   for l in leaves) for leaves in (spt, qry))
 
@@ -650,7 +671,7 @@ class MetaLearner:
                                      for l in spt], m_spt),
                 qry=self._build_set([l.index_select(0, rows[k])
                                      for l in qry], m_qry)), \
-                _take_live(self._clive, idx[k])
+                _take_tasks_of(self._cfills, idx[k])
         return self._train_steps(batch, range(idx.shape[0]))
 
     # -- host-windowed pool --------------------------------------------------
@@ -663,16 +684,16 @@ class MetaLearner:
         an event, and the returned event completes when the host buffer may
         be refilled. Otherwise the copy has finished on return and the event
         is None. The device buffer comes as a `Window`, with its steps'
-        live counts where the buffer is the host's (read before the copy
+        bin fills where the buffer is the host's (copied before the copy
         starts), so that train_steps_from_window repacks it."""
         self._codec = codec
         src = torch.as_tensor(buf)
-        live = None
+        fills = None
         if src.device.type == "cpu":
-            live = tuple(live_counts(leaves[-2])
-                         for leaves in self._window_leaves(src))
+            fills = tuple(np.array(leaves[-2])
+                          for leaves in self._window_leaves(src))
         if self.device.type != "cuda" or not src.is_pinned():
-            return Window(src.to(self.device), live), None
+            return Window(src.to(self.device), fills), None
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
         compute = torch.cuda.current_stream(self.device)
@@ -685,7 +706,7 @@ class MetaLearner:
         # allocated on the copy stream, read on the compute stream: keep the
         # allocator from reusing it before the compute stream is done
         dev.record_stream(compute)
-        return Window(dev, live), done
+        return Window(dev, fills), done
 
     def put_window(self, chunk: TaskBatch, task_num: int):
         """encode_window + put_buffer in one call (inline path)."""
@@ -696,22 +717,22 @@ class MetaLearner:
         (put_buffer's `Window`), decoded one step at a time."""
         _, _, m_spt, m_qry = self._codec
         spt, qry = self._window_leaves(window.words)
-        live = window.live
 
         def batch(k):
             return TaskBatch(
                 spt=self._build_set([l[k] for l in spt], m_spt),
                 qry=self._build_set([l[k] for l in qry], m_qry)), \
-                _take_live(live, k)
+                _take_tasks_of(window.fills, k)
         return self._train_steps(batch, range(spt[0].shape[0]))
 
     def finetune_batch(self, batch: TaskBatch, params=None) -> torch.Tensor:
         """(T, update_step_test+1) accuracy curves for a batch of tasks,
         finetuned from `params` (default: current theta)."""
-        batch = self._decode(batch, _host_live(batch), shard=False)
+        batch, segs = self._decode(batch, _host_fills(batch), shard=False)
         p = tuple(x.detach() for x in
                   (self.params if params is None else params))
-        curves = [self._test_inner(p, take_tasks(batch, sl), self._feats)[1]
+        curves = [self._test_inner(p, take_tasks(batch, sl), self._feats,
+                                   _take_tasks_of(segs, sl))[1]
                   .qry_accs for sl in self._chunks(
                       batch.spt.node_gid.shape[0])]
         return torch.cat(curves, dim=0)

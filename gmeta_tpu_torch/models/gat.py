@@ -58,7 +58,8 @@ from gmeta_tpu_torch.ops.gat_attention import AttnGraph, attend, attn_graph
 
 class GatOperands(NamedTuple):
     """Per-task-set operands, constant over the inner steps."""
-    attn: AttnGraph          # the edges over the T*B*P flat rows
+    attn: AttnGraph          # the edges over the T*B*P flat rows and their
+                             # segments
     h0: torch.Tensor = None  # (T, B, P, F) gathered, masked input features
 
 
@@ -87,14 +88,18 @@ def init_params(generator: torch.Generator,
 
 
 def precompute(sg: SubgraphSet, compute_dtype=torch.float32,
-               feats: torch.Tensor = None, agg: str = "sized") -> GatOperands:
+               feats: torch.Tensor = None, agg: str = "sized",
+               segments=None) -> GatOperands:
     """The attention's graph and, when `feats` is given, the gathered
-    input features, once per task set. GAT runs on the CSRs only."""
+    input features, once per task set. GAT runs on the CSRs only.
+    `segments` (data/repack.py `Segments`) are a repacked set's; without
+    them the attention's segments are the set's bins."""
     if agg != "sized":
         raise ValueError(f"GAT has no {agg!r} aggregation: it runs on the "
                          f"CSR path (agg='sized')")
     T, B, P = sg.node_gid.shape
-    graph = attn_graph(sg.edge_src, sg.edge_dst, sg.edge_mask, B, P)
+    graph = attn_graph(sg.edge_src, sg.edge_dst, sg.edge_mask, B, P,
+                       segments)
     h0 = None if feats is None else gather_features(sg, feats, compute_dtype)
     return GatOperands(attn=graph, h0=h0)
 

@@ -29,15 +29,30 @@ the plain PyTorch version (`fwd_plain`, `bwd_plain`, the kernels'
 arithmetic with gathers and index_add_, float64 too), a CUDA tensor
 launches the kernels (float32), and any other device raises; there is no
 fallback. The backward is first order: under create_graph it raises.
+
+Which kernels a CUDA call launches follows its graph (`route`): every
+source a destination reads lies in its *segment*, a range of rows that no
+real edge leaves (a bin of P slots in the slot layout; an original bin's
+live rows, or a piece of a task's tail of padding, in the repacked one,
+data/repack.py `segments`). `AttnGraph` carries the segments' first rows
+and the host's bound on a segment's rows. Where that bound is at most
+`STAGE_ROWS`, the staged kernels run: a block per segment and head copies
+the segment's rows into shared memory once and sums every term from there
+(their bits: csrc/gat_attention.cu's header); otherwise the walk kernels,
+which read each term's source row from L2. The choice rests on the host's
+number alone, so it waits for nothing.
+
 `LAUNCHES` names the counts of the CUDA kernel launches by direction (the
-backward is three kernels; utils/metrics.py). Every call, forward and
-backward, runs in an `attn` span
+backward is three kernels; utils/metrics.py), `STAGED` those of them that
+ran staged. Every call, forward and backward, runs in an `attn` span
 (utils/metrics.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -49,25 +64,72 @@ from gmeta_tpu_torch.utils.metrics import count, span
 
 # Counted names of kernel launches per direction; only a CUDA launch counts.
 LAUNCHES = {"fwd": "gat_attention.fwd", "bwd": "gat_attention.bwd"}
+STAGED = {"fwd": "gat_attention.staged.fwd",
+          "bwd": "gat_attention.staged.bwd"}
 
 SLOPE = 0.2               # LeakyReLU's negative slope (the paper's)
 _MAX_ROWS = 2**31 - 1     # the kernels' row index is 32 bits
+# The most rows a segment may hold for the staged kernels: at 1024 rows
+# (the presets' bins) their fixed shared memory, forward 153 KB and
+# backward 165 KB, leaves a block's 227 KB room to cache 16 and 6.2 edges a
+# row (csrc/gat_attention.cu `fwd_fixed`, `bwd_fixed`, `room`).
+STAGE_ROWS = 1024
+# A segment's rows are split among blocks until the grid holds this many
+# blocks an SM (at most 8 blocks a segment and head).
+_BLOCKS_PER_SM = 4
 
 
 class AttnGraph(NamedTuple):
     """A packed set's edges for the attention: both CSRs over its T*B*P
-    flat rows (ops/sized_spmm.py `SizedGraph`) and, for each entry of the
-    forward CSR, the position of the same edge in the transposed one."""
+    flat rows (ops/sized_spmm.py `SizedGraph`), for each entry of the
+    forward CSR the position of the same edge in the transposed one, and
+    the segments (module docstring): `seg` (S + 1,) int32 their first rows
+    in order, then T*B*P; `seg_rows` the host's bound on a segment's rows
+    (0: none known, the walk kernels run)."""
     sized: SizedGraph
     pos_t: torch.Tensor   # (T*E,) int32
+    seg: torch.Tensor = None
+    seg_rows: int = 0
 
 
 def attn_graph(edge_src: torch.Tensor, edge_dst: torch.Tensor,
-               edge_mask: torch.Tensor, B: int, P: int) -> AttnGraph:
+               edge_mask: torch.Tensor, B: int, P: int,
+               segments=None) -> AttnGraph:
     """The AttnGraph of (..., E) packed edge lists, on their device, with
-    no host sync: the real edges (mask 1) of `sized_graph`."""
-    return AttnGraph(*sized_graph(edge_src, edge_dst, edge_mask, B, P,
-                                  positions=True))
+    no host sync: the real edges (mask 1) of `sized_graph`. Its segments
+    are each task's bins of P rows or, given `segments` (data/repack.py
+    `Segments`: each task's segments' first rows (T, n) on the device and
+    their bound on the host), those."""
+    sized, pos_t = sized_graph(edge_src, edge_dst, edge_mask, B, P,
+                               positions=True)
+    T, dev = math.prod(edge_src.shape[:-1]), edge_src.device
+    if segments is None:
+        first, rows = torch.arange(T * B, device=dev, dtype=torch.int32) * P, P
+    else:
+        first = (segments.start.to(torch.int32) + B * P * torch.arange(
+            T, device=dev, dtype=torch.int32)[:, None]).reshape(-1)
+        rows = segments.rows
+    end = torch.full((1,), T * B * P, device=dev, dtype=torch.int32)
+    return AttnGraph(sized, pos_t, torch.cat([first, end]), rows)
+
+
+def route(graph: AttnGraph) -> str:
+    """'staged' where the graph's segments fit the staged kernels'
+    shared memory (at most STAGE_ROWS rows, by the host's bound), else
+    'walk'."""
+    staged = graph.seg is not None and 0 < graph.seg_rows <= STAGE_ROWS
+    return "staged" if staged else "walk"
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def shares(segments: int, K: int, sms: int) -> int:
+    """Blocks a segment and head is split among: enough for
+    _BLOCKS_PER_SM blocks an SM over the grid, at most 8."""
+    return max(1, min(8, -(-_BLOCKS_PER_SM * sms // max(segments * K, 1))))
 
 
 def _terms(graph: AttnGraph, N: int, device):
@@ -124,23 +186,46 @@ def bwd_plain(graph: AttnGraph, zst: torch.Tensor, o: torch.Tensor,
 
 
 def _lib():
+    """The kernels' entry points by (route, direction)."""
     lib = cuda_build.load("gat_attention")
-    fwd, bwd = lib.gmeta_gat_attn_fwd, lib.gmeta_gat_attn_bwd
-    if fwd.argtypes is None:
-        fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] \
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fwd.restype = ctypes.c_int
-        bwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] \
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        bwd.restype = ctypes.c_int
-    return fwd, bwd
+    fns = {("walk", "fwd"): lib.gmeta_gat_attn_fwd,
+           ("walk", "bwd"): lib.gmeta_gat_attn_bwd,
+           ("staged", "fwd"): lib.gmeta_gat_attn_fwd_staged,
+           ("staged", "bwd"): lib.gmeta_gat_attn_bwd_staged}
+    if fns["walk", "fwd"].argtypes is None:
+        ptrs = {("walk", "fwd"): 5, ("walk", "bwd"): 12,
+                ("staged", "fwd"): 6, ("staged", "bwd"): 13}
+        for key, fn in fns.items():
+            sizes = [ctypes.c_longlong] * (2 if key[0] == "staged" else 1)
+            ints = 5 if key[0] == "staged" else 3
+            fn.argtypes = [ctypes.c_void_p] * ptrs[key] + sizes \
+                + [ctypes.c_int] * ints + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    return fns
+
+
+def _call(how: str, direction: str, graph: AttnGraph, device, args,
+          K: int, F: int, ld: int) -> int:
+    """The `how` kernels of `direction` on device's current stream with
+    args, then the geometry: N rows, for a staged call also the segments,
+    their bound and the blocks a segment is split among, then K, F and ld.
+    The CUDA error code."""
+    N = graph.sized.row_ptr.shape[0] - 1
+    geometry = [N]
+    if how == "staged":
+        S = graph.seg.shape[0] - 1
+        geometry += [S, graph.seg_rows, shares(S, K, _sms(device.index))]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        return _lib()[how, direction](*args, *geometry, K, F, ld, stream)
 
 
 def _check(graph: AttnGraph, zst: torch.Tensor, K: int, F: int):
     if zst.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the attention runs on cpu or cuda, not "
                          f"{zst.device}")
-    tensors = tuple(graph.sized) + (graph.pos_t,)
+    tensors = tuple(graph.sized) + (graph.pos_t,) + (
+        () if graph.seg is None else (graph.seg,))
     if any(t.device != zst.device for t in tensors):
         raise ValueError(f"graph on {graph.sized.row_ptr.device} but zst on "
                          f"{zst.device}")
@@ -172,16 +257,17 @@ def _launch_fwd(graph: AttnGraph, zst: torch.Tensor, K: int, F: int):
     row_ptr, col = graph.sized.csr("fwd")
     o = torch.empty((N, K * F), dtype=zst.dtype, device=zst.device)
     lse = torch.empty((N, K), dtype=zst.dtype, device=zst.device)
-    fwd, _ = _lib()
-    with torch.cuda.device(zst.device):
-        stream = torch.cuda.current_stream(zst.device).cuda_stream
-        err = fwd(row_ptr.data_ptr(), col.data_ptr(), zst.data_ptr(),
-                  o.data_ptr(), lse.data_ptr(), N, K, F, zst.shape[1],
-                  stream)
+    how = route(graph)
+    seg = [graph.seg.data_ptr()] if how == "staged" else []
+    err = _call(how, "fwd", graph, zst.device,
+                [row_ptr.data_ptr(), col.data_ptr(), *seg, zst.data_ptr(),
+                 o.data_ptr(), lse.data_ptr()], K, F, zst.shape[1])
     if err != 0:
         raise RuntimeError(f"gat_attention forward launch failed (CUDA "
-                           f"error {err}) at N={N} K={K} F={F}")
+                           f"error {err}) at N={N} K={K} F={F} ({how})")
     count(LAUNCHES["fwd"])
+    if how == "staged":
+        count(STAGED["fwd"])
     return o, lse
 
 
@@ -193,18 +279,20 @@ def _launch_bwd(graph: AttnGraph, zst, o, lse, g, K: int, F: int):
     D = torch.empty((N, K), dtype=zst.dtype, device=zst.device)
     dx_t = torch.empty((max(nnz, 1), K), dtype=zst.dtype, device=zst.device)
     dx_self = torch.empty_like(D)
-    _, bwd = _lib()
-    with torch.cuda.device(zst.device):
-        stream = torch.cuda.current_stream(zst.device).cuda_stream
-        err = bwd(sized.row_ptr.data_ptr(), sized.row_ptr_t.data_ptr(),
-                  sized.col_t.data_ptr(), graph.pos_t.data_ptr(),
-                  zst.data_ptr(), o.data_ptr(), lse.data_ptr(), g.data_ptr(),
-                  dzst.data_ptr(), D.data_ptr(), dx_t.data_ptr(),
-                  dx_self.data_ptr(), N, K, F, zst.shape[1], stream)
+    how = route(graph)
+    seg = [graph.seg.data_ptr()] if how == "staged" else []
+    err = _call(how, "bwd", graph, zst.device,
+                [sized.row_ptr.data_ptr(), sized.row_ptr_t.data_ptr(),
+                 sized.col_t.data_ptr(), graph.pos_t.data_ptr(), *seg,
+                 zst.data_ptr(), o.data_ptr(), lse.data_ptr(), g.data_ptr(),
+                 dzst.data_ptr(), D.data_ptr(), dx_t.data_ptr(),
+                 dx_self.data_ptr()], K, F, zst.shape[1])
     if err != 0:
         raise RuntimeError(f"gat_attention backward launch failed (CUDA "
-                           f"error {err}) at N={N} K={K} F={F}")
+                           f"error {err}) at N={N} K={K} F={F} ({how})")
     count(LAUNCHES["bwd"], 3)
+    if how == "staged":
+        count(STAGED["bwd"], 3)
     return dzst
 
 

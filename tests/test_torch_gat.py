@@ -525,3 +525,9 @@ def test_bench_gat_times_the_repacked_layout():
         moved = sc[:nnz].long() // (B * P) * M \
             + sc[:nnz].long() % (B * P) // P * live + sc[:nnz].long() % P
         assert torch.equal(rc[:nnz].long(), moved)
+    # each original bin's live rows a segment (then the tail's padding,
+    # which this shape has none of)
+    assert rep.seg_rows == live and M == B * live
+    want = torch.tensor([t * M + b * live for t in range(T)
+                         for b in range(B)] + [T * M])
+    assert torch.equal(rep.seg.long(), want), rep.seg

@@ -286,8 +286,9 @@ def test_dense_path_keeps_the_slot_layout_bitwise(data, link):
     ml, ref = (_learner(spec, torch.float32, agg="dense") for _ in range(2))
     for m in (ml, ref):
         m.set_features(feats.numpy())
-    live = tuple(repack.live_counts(sg.bin_fill) for sg in batch)
-    for a, b in zip(ml._decode(batch, live), batch_to(batch, "cpu")):
+    decoded, segs = ml._decode(batch, tuple(sg.bin_fill for sg in batch))
+    assert segs is None
+    for a, b in zip(decoded, batch_to(batch, "cpu")):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
     with counted() as c:
@@ -374,3 +375,128 @@ def test_windows_keep_their_own_live_counts(data):
             assert torch.equal(a[k], b[k]), k
     for a, b in zip(p0, p1):
         assert torch.equal(a, b)
+
+
+def _segment_of(graph, rows):
+    """Each row's segment index under the graph's segment table."""
+    return torch.searchsorted(graph.seg.long(), rows, right=True)
+
+
+def _check_segments(graph, N, bound):
+    """The table runs from 0 to N without going back, no segment holds
+    more than `bound` rows, and every real edge's source lies in its
+    destination's segment."""
+    seg = graph.seg.long()
+    assert int(seg[0]) == 0 and int(seg[-1]) == N
+    assert bool((seg[1:] >= seg[:-1]).all())
+    assert graph.seg_rows == bound >= int((seg[1:] - seg[:-1]).max())
+    row_ptr, col = graph.sized.csr("fwd")
+    dst = torch.repeat_interleave((row_ptr[1:] - row_ptr[:-1]).long())
+    src = col[:dst.numel()].long()
+    assert torch.equal(_segment_of(graph, dst), _segment_of(graph, src))
+    return dst.numel()
+
+
+def _packer_batch():
+    """A step's batch as the packer fills it (data/pack.py's first-fit
+    decreasing over extracted subgraphs): bins of uneven fill."""
+    from gmeta_tpu_torch.meta.maml import take_tasks
+    _, ds = synthetic_disjoint(nodes_per_graph=300, feat_dim=8,
+                               num_classes=9, batchsz=12, sample_nodes=64,
+                               seed=3)
+    return take_tasks(ds["train"].stacked_pool(), np.arange(4))
+
+
+@pytest.mark.parametrize("fills", ["fixture", "packer"])
+def test_segments_cover_every_row_and_hold_every_edge(data, fills):
+    """The attention's segments (ops/gat_attention.py) of a GAT's sets as
+    the learner builds them: in the slot layout each bin of P, in the
+    repacked one each original bin's live rows and the tails' padding in
+    pieces (data/repack.py `segments`). Either way they cover every row,
+    no real edge leaves its segment, and the host's bound is P or the
+    largest fill."""
+    from gmeta_tpu_torch.models import gat
+    batch = data[1] if fills == "fixture" else _packer_batch()
+    ml = _learner(_spec("gat", False), torch.float32)
+    host = tuple(sg.bin_fill for sg in batch)
+    repacked, segs = ml._decode(batch, host)
+    assert segs is not None
+    for sg, rp, seg, f in zip(batch_to(batch, "cpu"), repacked, segs, host):
+        T, B, Pb = sg.node_gid.shape
+        slot = gat.precompute(sg).attn
+        assert _check_segments(slot, T * B * Pb, Pb) > 0
+        M = rp.node_gid.shape[-1]
+        graph = gat.precompute(rp, segments=seg).attn
+        assert _check_segments(graph, T * M, int(np.max(f))) > 0
+        # each original bin's live rows are one segment
+        starts = set(graph.seg.tolist())
+        for t in range(T):
+            first = t * M + np.concatenate([[0], np.cumsum(f[t])[:-1]])
+            assert set(first.tolist()) <= starts
+
+
+def test_route_follows_the_bin_size_and_the_largest_fill(monkeypatch):
+    """The host picks the staged kernels where its bound on a segment's
+    rows (P in the slot layout, the largest fill in the repacked one) fits
+    their shared memory, and the walk kernels otherwise, or where a
+    repacked graph comes without its segments; each launch is counted
+    under LAUNCHES, a staged one under STAGED too."""
+    from gmeta_tpu_torch.ops import gat_attention as ga
+    limit = ga.STAGE_ROWS
+
+    def graph(fills, P, repacked):
+        fills = np.asarray(fills, np.int32)
+        T, B = fills.shape
+        dst = torch.tensor([[b * P for b in range(B)]] * T)
+        mask = torch.ones(dst.shape)
+        if not repacked:
+            return ga.attn_graph(dst, dst, mask, B, P)
+        M = repack.bin_rows(repack.live_counts(fills))
+        first = torch.from_numpy(np.concatenate(
+            [np.zeros((T, 1), np.int64), np.cumsum(fills, 1)[:, :-1]], 1))
+        seg = repack.segments(torch.from_numpy(fills), M, fills)
+        return ga.attn_graph(first, first, mask, 1, M, seg)
+
+    cases = [  # fills, P, repacked -> route
+        ([[5, 7]], 8, False, "staged"),
+        ([[5, 7]], limit, False, "staged"),
+        ([[5, 7]], limit + 8, False, "walk"),
+        ([[1000, 1000], [900, 0]], 1024, True, "staged"),   # M 2000 > limit
+        ([[limit, 3]], limit, True, "staged"),
+        ([[limit + 1, 3]], limit + 8, True, "walk"),
+    ]
+    calls = []
+    monkeypatch.setattr(ga, "_call",
+                        lambda how, d, *rest: calls.append((how, d)) or 0)
+    K, F = 1, 4
+    for fills, P, repacked, want in cases:
+        g = graph(fills, P, repacked)
+        assert ga.route(g) == want, (fills, P, repacked)
+        N = g.sized.row_ptr.numel() - 1
+        zst = torch.zeros(N, K * F + 2 * K)
+        calls.clear()
+        with counted() as c:
+            o, lse = ga._launch_fwd(g, zst, K, F)
+            ga._launch_bwd(g, zst, o, lse, torch.zeros(N, K * F), K, F)
+        assert calls == [(want, "fwd"), (want, "bwd")]
+        assert c.of(ga.LAUNCHES) == {"fwd": 1, "bwd": 3}
+        staged = want == "staged"
+        assert c.of(ga.STAGED) == {"fwd": int(staged), "bwd": 3 * staged}
+    # a repacked graph without its segments: one bin of M rows
+    rp = graph([[1000, 1000]], 1024, True)
+    assert ga.route(ga.attn_graph(*(rp.sized.col[None],) * 2,
+                                  torch.ones(1, 2), 1, 2000)) == "walk"
+    assert ga.route(rp._replace(seg=None, seg_rows=0)) == "walk"
+
+
+@pytest.mark.parametrize("segments,K", [(256, 4), (96, 4), (96, 6), (1, 1),
+                                        (10 ** 5, 6)])
+def test_shares_fill_the_card(segments, K):
+    """A segment and head is split among just enough blocks (at most 8)
+    for the grid to hold _BLOCKS_PER_SM blocks an SM."""
+    from gmeta_tpu_torch.ops import gat_attention as ga
+    n = ga.shares(segments, K, 132)
+    assert 1 <= n <= 8
+    want = ga._BLOCKS_PER_SM * 132
+    assert segments * K * n >= want or n == 8
+    assert n == 1 or segments * K * (n - 1) < want
