@@ -8,8 +8,9 @@ Phases; any failure raises and the script exits non-zero:
                 limit (nvidia-smi).
   2. build    — compiles csrc/sized_spmm.cu (the packed body, the
                 full-graph body and the combine kernel),
-                csrc/gcn_epilogue.cu and csrc/gat_attention.cu from this
-                checkout (nvcc, sm_90a).
+                csrc/gcn_epilogue.cu, csrc/gat_attention.cu and
+                csrc/spatial_attention.cu from this checkout (nvcc,
+                sm_90a).
   3. checks   — each kernel against its plain PyTorch version on the card,
                 on packed edge lists (duplicates, pad edges): P in
                 {512, 1024}, live sizes {0, 1, 127, 129, P},
@@ -232,17 +233,40 @@ Phases; any failure raises and the script exits non-zero:
                 (c) bench_gat: each direction's staged and walk kernels
                 timed at both repacked sets and widths beside
                 `attention_bound` and the plain versions.
+  16. graphormer — Graphormer's distances and attention kernels
+                (ops/spatial_attention.py, csrc/spatial_attention.cu) at
+                the graphormer_ppi.pool cell's set shapes as the CSR path
+                runs them: (a) 16 tasks x 16 bins (query) and x 6 bins
+                (support) of 586 live slots, one graph a bin, repacked
+                (bench_graphormer.graph_inputs), 8 heads of 10: the
+                distance kernel's bytes those of `distances_plain` (one
+                launch a set), then `attend` and the autograd Function on
+                the card against `fwd_plain` and `bwd_plain` (one forward
+                and four backward launches a call; o and the gradients of
+                q, k, v and the spatial table within rtol 1e-4, atol 2e-5
+                of each tensor's largest magnitude); (b) one meta-step of
+                the cell's configuration (the tissue_ppi preset with arch
+                'graphormer', Graphormer-slim's widths, 16 tasks,
+                float32) on a batch of its geometry (GAT_SETS), after a
+                warm step, launch counts set to 0 just before and read
+                just after: 12 layers x (2 U + 2) forwards and x (U + 2)
+                backwards of 4 kernels, and 2 distance launches; its
+                seconds and peak memory; (c) bench_graphormer: each
+                direction timed at both repacked sets beside
+                `spatial_attention_bound` and the plain versions, and the
+                distances.
 
 Phase 2 builds the CUDA kernels (nvcc) and the host extraction engine (g++)
 at once. Prints phase 11's parity JSON line, phase 14's bench JSON line,
 the kernels' JSON line (the packed kernel's launches summed over phases
 7-14 and every rank, the rectangular entry point's and its combine
 kernel's over phases 10-13, the shared call's from 14(b), the GAT
-attention's from 15),
+attention's from 15, Graphormer's from 16),
 the slice's JSON line (with the modes' warm tasks/s, data_s and peak
 device memory under "modes", phase 9's numbers under "cli", phase 10's
 under "mesh", phase 12's under "measure", phase 13's under
-"calibrate" and phase 15's under "gat"), the card's name and power
+"calibrate", phase 15's under "gat" and phase 16's under "graphormer"),
+the card's name and power
 limit, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or the JAX package,
 and neither do its rank processes.
@@ -2679,6 +2703,133 @@ def gat_step(device):
     return got, seconds, peak
 
 
+def check_graphormer(device):
+    """Phase 16(a): the distance kernel and the attention kernels, through
+    `spatial_graph`, `attend` and the autograd Function, on the card
+    against `distances_plain`, `fwd_plain` and `bwd_plain` at the cell's
+    set shapes (bench_graphormer.SHAPES: 16 tasks x 16 or 6 graphs of 586
+    live slots, repacked into one bin of M rows a task as the CSR path
+    runs them, each original bin's rows a segment), 8 heads of 10: the
+    distances' bytes equal; one forward and four backward launches a
+    call; o and the gradients of q, k, v and the table within rtol 1e-4
+    and atol 2e-5 of each tensor's largest magnitude (float32 sums of a
+    segment's 586 terms in another order, the kernel's softmax online in
+    base 2; the backward's g . v - D cancels). A pair dropped or doubled
+    errs by a percent of the scale. Returns {set heads: max abs error over
+    scale, by tensor}."""
+    import torch
+
+    from gmeta_tpu_torch.ops import spatial_attention as sa
+    from gmeta_tpu_torch.ops.sized_spmm import sized_graph
+    from gmeta_tpu_torch.scripts.bench_graphormer import (HEADS, SHAPES,
+                                                          graph_inputs,
+                                                          operands)
+    K, D = HEADS
+    H = K * D
+    errs = {}
+    for name, (T, B, P, live, edges) in SHAPES.items():
+        inputs = graph_inputs(T, B, P, live, edges, device, repacked=True)
+        with counted() as c:
+            graph = sa.spatial_graph(*inputs)
+            torch.cuda.synchronize()
+        assert c.of(sa.LAUNCHES) == {"fwd": 0, "bwd": 0, "spd": 1}, \
+            c.of(sa.LAUNCHES)
+        src, dst, mask, _, b, p = inputs[:6]
+        sized = sized_graph(src, dst, mask, b, p)
+        want = sa.distances_plain(sized.row_ptr, sized.col, graph.seg,
+                                  graph.stride)
+        st, seg = graph.stride, graph.seg.cpu().long().tolist()
+        got, want = graph.phi.view(-1, st, st), want.view(-1, st, st)
+        for s in range(len(seg) - 1):
+            n = seg[s + 1] - seg[s]
+            assert torch.equal(got[s, :n, :n], want[s, :n, :n]), (name, s)
+        del sized, want
+        qkv, table, g = operands(graph, K, D, device)
+        with counted() as c:
+            x = qkv.clone().requires_grad_()
+            tb = table.clone().requires_grad_()
+            o = sa.attend(graph, x, tb, K, D)
+            dx, dtb = torch.autograd.grad(o, (x, tb), g)
+            torch.cuda.synchronize()
+        assert c.of(sa.LAUNCHES) == {"fwd": 1, "bwd": 4, "spd": 0}, \
+            (name, c.of(sa.LAUNCHES))
+        want_o, lse = sa.fwd_plain(graph, qkv, table, K, D)
+        want_dx, want_dtb = sa.bwd_plain(graph, qkv, table, want_o, lse, g,
+                                         K, D)
+        row = {}
+        for what, got_t, ref in (
+                ("o", o.detach(), want_o),
+                ("dq", dx[:, :H], want_dx[:, :H]),
+                ("dk", dx[:, H:2 * H], want_dx[:, H:2 * H]),
+                ("dv", dx[:, 2 * H:], want_dx[:, 2 * H:]),
+                ("dtable", dtb, want_dtb)):
+            scale = float(ref.abs().max())
+            torch.testing.assert_close(
+                got_t, ref, rtol=1e-4, atol=2e-5 * scale,
+                msg=lambda m: f"{name} {K}x{D} {what}: {m}")
+            row[what] = float((got_t - ref).abs().max()) / scale
+        errs[f"{name} {K}x{D}"] = row
+        log(f"  {name} {T}x{B}x{P} as {graph.live.numel()} rows, "
+            f"{len(seg) - 1} segments, heads {K}x{D}: distances equal; max "
+            f"abs error over scale {row}")
+        del graph, qkv, table, g, x, tb, o, dx, dtb, want_o, lse, want_dx
+        torch.cuda.empty_cache()
+    return errs
+
+
+def graphormer_step(device):
+    """Phase 16(b): one Graphormer meta-step of the graphormer_ppi.pool
+    cell's configuration (PRESETS["tissue_ppi"] with arch 'graphormer' at
+    Graphormer-slim's widths, 16 tasks, float32, the CSR path) on a batch
+    of its geometry (GAT_SETS: one graph a bin, a host batch, so the step
+    runs it repacked) and PPI's feature rows, after a warm step, launch
+    counts set to 0 just before it and read just after. Each of the L
+    layers runs 2 U + 2 attention forwards and U + 2 backwards of 4
+    kernels (as the GAT's, phase 15(b)); each set's distances one launch.
+    Returns (launches, seconds, peak GB)."""
+    import numpy as np
+    import torch
+
+    from gmeta_tpu_torch.config import PRESETS, build_model_config
+    from gmeta_tpu_torch.data.pack import TaskBatch
+    from gmeta_tpu_torch.meta.maml import MetaLearner
+    from gmeta_tpu_torch.ops import spatial_attention as sa
+    cfg = dataclasses.replace(PRESETS["tissue_ppi"], arch="graphormer",
+                              task_num=16, dtype="float32",
+                              agg="sized").validate()
+    spec = build_model_config(cfg, 50, cfg.n_way)
+    learner = MetaLearner(
+        spec, cfg.n_way, update_lr=cfg.update_lr, meta_lr=cfg.meta_lr,
+        update_step=cfg.update_step, update_step_test=cfg.update_step_test,
+        first_order=cfg.first_order, seed=cfg.seed,
+        track_curve=cfg.track_train_curve, agg="sized", device=device)
+    rng = np.random.default_rng(0)
+    learner.set_features(rng.standard_normal((GAT_ROWS, 50),
+                                             dtype=np.float32))
+    batch = TaskBatch(*(gat_set(rng, cfg.task_num, *GAT_SETS[s])
+                        for s in ("spt", "qry")))
+    assert math.isfinite(learner.train_step(batch)["meta_loss"].item())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with counted() as c:
+        loss = learner.train_step(batch)["meta_loss"].item()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    got = c.of(sa.LAUNCHES)
+    U, L = cfg.update_step, cfg.graphormer_layers
+    want = {"fwd": L * (2 * U + 2), "bwd": 4 * L * (U + 2), "spd": 2}
+    assert math.isfinite(loss) and got == want, (loss, got, want)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  one meta-step of 16 tasks: {seconds:.3f} s "
+        f"({cfg.task_num / seconds:.2f} tasks/s), launches {got}, "
+        f"{c[sa.PAIRS]} distance pairs, peak {peak:.2f} GB, meta-loss "
+        f"{loss:.6f}")
+    del learner, batch
+    torch.cuda.empty_cache()
+    return got, seconds, peak
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2689,6 +2840,7 @@ def main():
         from gmeta_tpu_torch.ops import cuda_build
         from gmeta_tpu_torch.ops import epilogue as ep
         from gmeta_tpu_torch.ops import gat_attention
+        from gmeta_tpu_torch.ops import spatial_attention
         from gmeta_tpu_torch.ops import sized_spmm as sp
         from gmeta_tpu_torch.run.train import Trainer
         from gmeta_tpu_torch.utils.device import resolve_device
@@ -2716,20 +2868,23 @@ def main():
     def timed(fn, name):
         t0 = time.time()
         return fn(name), time.time() - t0
-    with ThreadPoolExecutor(4) as pool:      # nvcc and g++ at once
+    with ThreadPoolExecutor(5) as pool:      # nvcc and g++ at once
         cu = pool.submit(timed, cuda_build.build, "sized_spmm")
         epi = pool.submit(timed, cuda_build.build, "gcn_epilogue")
         gat = pool.submit(timed, cuda_build.build, "gat_attention")
+        sat = pool.submit(timed, cuda_build.build, "spatial_attention")
         cpp = pool.submit(timed, cuda_build.build_host, "extract")
         (path, cu_s), (epi_path, epi_s) = cu.result(), epi.result()
         gat_path, gat_s = gat.result()
+        sat_path, sat_s = sat.result()
         host_path, cpp_s = cpp.result()
     build_s = time.time() - t
     log(f"  sized_spmm.cu -> {path.name} in {cu_s:.1f} s; gcn_epilogue.cu "
         f"-> {epi_path.name} in {epi_s:.1f} s; gat_attention.cu -> "
-        f"{gat_path.name} in {gat_s:.1f} s; extract.cpp -> "
+        f"{gat_path.name} in {gat_s:.1f} s; spatial_attention.cu -> "
+        f"{sat_path.name} in {sat_s:.1f} s; extract.cpp -> "
         f"{host_path.name} in {cpp_s:.1f} s; all {build_s:.1f} s")
-    for so in (path, epi_path, gat_path):
+    for so in (path, epi_path, gat_path, sat_path):
         log("  " + so.with_suffix(".ptxas.txt").read_text()
             .strip().replace("\n", "\n  "))
 
@@ -2916,6 +3071,17 @@ def main():
     log(f"  {time.time() - t:.1f} s; attention launches of the timing "
         f"{c.of(gat_attention.LAUNCHES)}")
 
+    t = phase("16 graphormer: the distances and attention kernels at "
+              "graphormer_ppi.pool's shapes; one meta-step of its "
+              "configuration")
+    sat_errs = check_graphormer(device)
+    sat_step_launches, sat_step_s, sat_peak = graphormer_step(device)
+    with counted() as c:
+        sat_bench, _ = run_script("bench_graphormer", [])
+    shutil.rmtree(MEASURE, ignore_errors=True)
+    log(f"  {time.time() - t:.1f} s; launches of the timing "
+        f"{c.of(spatial_attention.LAUNCHES)}")
+
     kernels = []
     for direction, line in (("fwd", 39), ("bwd", 80)):
         head = timing[(direction, 256)]
@@ -3059,6 +3225,33 @@ def main():
                    for x in ("ms", "share")}
                 for k, r in rows.items()},
         })
+    for direction, n_kernels in (("fwd", 1), ("bwd", 4)):
+        rows = {r["set"]: r for r in sat_bench["rows"]}
+        head = rows["qry"]
+        kernels.append({
+            "name": f"sattn_{direction}",
+            "route": "cuda",
+            "source": "gmeta_tpu_torch/csrc/spatial_attention.cu",
+            # the JAX package has no Graphormer
+            "replaces": None,
+            "kernels_a_call": n_kernels,
+            "launches_per_meta_step": sat_step_launches[direction],
+            "max_abs_err_over_scale": max(
+                v for e in sat_errs.values() for k, v in e.items()
+                if (k == "o") == (direction == "fwd")),
+            "ms": head[f"{direction}_ms"],
+            "bound_ms": head[f"{direction}_bound_ms"],
+            "bound_by": head[f"{direction}_bound"],
+            "share": head[f"{direction}_share"],
+            "plain_ms": head[f"{direction}_plain_ms"],
+            "shape": f"16 x 16 x 1024 repacked into {head['rows']} rows, "
+                     f"{head['segments']} graphs of 586, 8 x 10 heads, "
+                     f"float32",
+            "by_set": {k: {x: r[f"{direction}_{x}"]
+                           for x in ("ms", "bound_ms", "share", "plain_ms")}
+                       | {"spd_ms": r["spd_ms"]}
+                       for k, r in rows.items()},
+        })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"slice": {
         "fit_s": fit_s, "fit_theta_sha256": fit_sha256,
@@ -3073,6 +3266,8 @@ def main():
         "mesh": mesh, "measure": measure12, "calibrate": calibrate13,
         "gat": {"errors": gat_errs, "step_s": gat_step_s,
                 "peak_gb": gat_peak, "launches": gat_step_launches},
+        "graphormer": {"errors": sat_errs, "step_s": sat_step_s,
+                       "peak_gb": sat_peak, "launches": sat_step_launches},
         "card": card}}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -112,12 +112,20 @@ class Config:
                                         # gcn.py, depth h); 'gat':
                                         # models/gat.py, three GAT layers
                                         # (Velickovic et al.'s PPI widths
-                                        # by default); validate() refuses
+                                        # by default); 'graphormer':
+                                        # models/graphormer.py
+                                        # (Graphormer-slim's widths by
+                                        # default); validate() refuses
                                         # any other name
     gat_heads: int = 4                  # heads of GAT layers 1 and 2
     gat_hidden: int = 256               # features a head there (concatenated)
     gat_out_heads: int = 6              # heads of GAT layer 3 (averaged)
     gat_out_dim: int = 121              # features a head there: the embedding
+    graphormer_layers: int = 12         # Graphormer layers
+    graphormer_hidden: int = 80         # their width
+    graphormer_heads: int = 8           # attention heads (hidden / heads
+                                        # features each)
+    graphormer_ffn: int = 80            # the FFN's inner width
 
     @property
     def labels_num(self) -> int:
@@ -126,7 +134,7 @@ class Config:
     def validate(self, mesh_tasks: int = 0, mesh_edges: int = 0) -> "Config":
         """Checks the fields; `mesh_tasks` and `mesh_edges` are the run's
         task-DP and edge-engine ranks (run/train.py's flags), which a GAT
-        refuses."""
+        and a Graphormer refuse."""
         assert self.task_setup in ("Disjoint", "Shared"), self.task_setup
         if self.task_setup == "Shared" and self.n_way != Config.n_way:
             import warnings
@@ -141,10 +149,10 @@ class Config:
         assert self.update_step >= 1 and self.update_step_test >= 1
         if self.link_pred_mode:
             assert self.task_setup == "Shared", "link prediction uses the Shared setup"
-        if self.arch not in ("gcn", "gat"):
+        if self.arch not in ("gcn", "gat", "graphormer"):
             raise ValueError(f"arch {self.arch!r} is no architecture of the "
-                             f"port: 'gcn' or 'gat'")
-        if self.arch == "gat":
+                             f"port: 'gcn', 'gat' or 'graphormer'")
+        if self.arch != "gcn":
             missing = [what for refused, what in (
                 (self.agg == "dense", "a dense aggregation (agg='dense'): "
                  "the attention runs on the CSR path only"),
@@ -157,9 +165,18 @@ class Config:
                 (mesh_edges > 0, "the edge engine (--mesh_edges)"),
                 (mesh_tasks > 0, "task-DP (--mesh_tasks)")) if refused]
             if missing:
-                raise ValueError("arch='gat' has no " + "; no ".join(missing))
+                raise ValueError(f"arch={self.arch!r} has no "
+                                 + "; no ".join(missing))
+        if self.arch == "gat":
             assert min(self.gat_heads, self.gat_hidden, self.gat_out_heads,
                        self.gat_out_dim) >= 1
+        if self.arch == "graphormer":
+            assert min(self.graphormer_layers, self.graphormer_hidden,
+                       self.graphormer_heads, self.graphormer_ffn) >= 1
+            if self.graphormer_hidden % self.graphormer_heads:
+                raise ValueError(
+                    f"graphormer_hidden {self.graphormer_hidden} is no "
+                    f"multiple of graphormer_heads {self.graphormer_heads}")
         return self
 
 
@@ -168,9 +185,18 @@ def build_model_config(cfg: Config, input_dim: int, labels_num: int):
     h GraphConv layers (depth tied to hop count) then a Linear head; LinkPred
     doubles the head's input via endpoint-pair concat (learner.py:85,165-168).
     With arch='gat', the three ("GATConv", (fan_in, heads, width, concat,
-    skip)) layers of models/gat.py then the Linear head. `cfg` may be the
-    JAX package's Config, which has no `arch`: a GCN.
+    skip)) layers of models/gat.py then the Linear head; with
+    arch='graphormer', models/graphormer.py's ("GraphormerEmbed", (fan_in,
+    hidden, heads)), its layers ("GraphormerLayer", (hidden, heads, ffn)),
+    the final ("LayerNorm", (hidden,)) and the Linear head. `cfg` may be
+    the JAX package's Config, which has no `arch`: a GCN.
     """
+    if getattr(cfg, "arch", "gcn") == "graphormer":
+        H, K = cfg.graphormer_hidden, cfg.graphormer_heads
+        return ((("GraphormerEmbed", (input_dim, H, K)),)
+                + (("GraphormerLayer", (H, K, cfg.graphormer_ffn)),)
+                * cfg.graphormer_layers
+                + (("LayerNorm", (H,)), ("Linear", (H, labels_num))))
     if getattr(cfg, "arch", "gcn") == "gat":
         K, F = cfg.gat_heads, cfg.gat_hidden
         return (("GATConv", (input_dim, K, F, True, False)),

@@ -104,15 +104,27 @@ def num_bins(sizes: Sequence[int], P: int) -> int:
     return max(a) + 1 if a else 0
 
 
+def bins_for(sizes: Sequence[int], P: int, one_per_bin: bool = False):
+    """The bin of each subgraph: FFD's (`ffd_bins`) or, `one_per_bin`,
+    subgraph k in bin k (models/graphormer.py attends over one graph a
+    bin)."""
+    if not one_per_bin:
+        return ffd_bins(sizes, P)
+    assert all(n <= P for n in sizes), (max(sizes), P)
+    return list(range(len(sizes)))
+
+
 def pack_set(subs: Sequence[Subgraph], graph_idxs: Sequence[int],
              labels: np.ndarray, store: GraphStore,
-             P: int, E: int, B: int = None) -> SubgraphSet:
-    """Bin-pack S subgraphs into B bins of P node slots with edge budget E.
-    B=None uses exactly the bins FFD needs; pass a split-global B to get a
-    fixed stackable shape."""
+             P: int, E: int, B: int = None,
+             one_per_bin: bool = False) -> SubgraphSet:
+    """Bin-pack S subgraphs into B bins of P node slots with edge budget E:
+    first-fit-decreasing or, `one_per_bin`, one subgraph a bin in order.
+    B=None uses exactly the bins the placement needs; pass a split-global
+    B to get a fixed stackable shape."""
     S = len(subs)
     sizes = [s.num_nodes for s in subs]
-    assign = ffd_bins(sizes, P)
+    assign = bins_for(sizes, P, one_per_bin)
     need = (max(assign) + 1) if assign else 0
     if B is None:
         B = need

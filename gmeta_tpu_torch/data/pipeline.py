@@ -21,7 +21,8 @@ import torch
 from gmeta_tpu_torch.data.extract import SubgraphExtractor
 from gmeta_tpu_torch.data.io import SplitIndex
 from gmeta_tpu_torch.data.graph import GraphStore
-from gmeta_tpu_torch.data.pack import TaskBatch, pack_set, stack_tasks
+from gmeta_tpu_torch.data.pack import (TaskBatch, num_bins, pack_set,
+                                       stack_tasks)
 from gmeta_tpu_torch.data.sampler import EpisodeSampler
 
 
@@ -165,8 +166,9 @@ def agg_for(split, device, layer_spec=None, dtype: str = "float32") -> str:
     On any other device, `split.suggested_agg`: the JAX package's rule,
     so that the CPU resolves `auto` as the JAX package does.
 
-    A GAT (models/gat.py) has no dense path: "sized" on every device."""
-    if layer_spec and layer_spec[0][0] == "GATConv":
+    A GAT (models/gat.py) or a Graphormer (models/graphormer.py) has no
+    dense path: "sized" on every device."""
+    if layer_spec and layer_spec[0][0] in ("GATConv", "GraphormerEmbed"):
         return "sized"
     if torch.device(device).type != "cuda":
         return split.suggested_agg
@@ -174,6 +176,13 @@ def agg_for(split, device, layer_spec=None, dtype: str = "float32") -> str:
     H = aggregation_width(layer_spec)
     return ("sized" if edges_per_slot(split) < card_crossover(P, H, dtype)
             else "dense")
+
+
+def one_per_bin(layer_spec) -> bool:
+    """Whether a model packs one subgraph a bin: a Graphormer
+    (models/graphormer.py) attends over all nodes of a bin, which must
+    then be one graph; every other model takes FFD's bins."""
+    return bool(layer_spec) and layer_spec[0][0] == "GraphormerEmbed"
 
 
 class MetaDataset:
@@ -228,10 +237,11 @@ class MetaDataset:
         # Global static buckets for this split: P = bin capacity (max subgraph
         # size rounded up to a multiple of 128; bounded by the
         # sample_nodes cap), E = rounded max total edges of a task's set,
-        # B = max bins any task needs under first-fit-decreasing packing
-        # (pack.py). Aggregation cost scales with B*P^2 ~= total-nodes * P,
-        # so P hugs the true max (fine 128-granularity, not power-of-two).
-        from gmeta_tpu_torch.data.pack import num_bins, round_up
+        # B = max bins any task needs under its placement (first-fit-
+        # decreasing, pack.py; one subgraph a bin: `place_one_per_bin`).
+        # Aggregation cost scales with B*P^2 ~= total-nodes * P, so P hugs
+        # the true max (fine 128-granularity, not power-of-two).
+        from gmeta_tpu_torch.data.pack import round_up
         self.P_spt = round_up(max(
             s.num_nodes for t in self.tasks for s in t.spt_subs), 128)
         self.E_spt = round_up(max(
@@ -240,10 +250,25 @@ class MetaDataset:
             s.num_nodes for t in self.tasks for s in t.qry_subs), 128)
         self.E_qry = round_up(max(
             sum(s.num_edges for s in t.qry_subs) for t in self.tasks), 2048)
-        self.B_spt = max(num_bins([s.num_nodes for s in t.spt_subs],
-                                  self.P_spt) for t in self.tasks)
-        self.B_qry = max(num_bins([s.num_nodes for s in t.qry_subs],
-                                  self.P_qry) for t in self.tasks)
+        self.one_per_bin = False
+        self._set_bins()
+
+    def _set_bins(self):
+        """B of each set: the most bins a task's placement needs."""
+        def bins(sizes, P):
+            return len(sizes) if self.one_per_bin else num_bins(sizes, P)
+        self.B_spt = max(bins([s.num_nodes for s in t.spt_subs], self.P_spt)
+                         for t in self.tasks)
+        self.B_qry = max(bins([s.num_nodes for s in t.qry_subs], self.P_qry)
+                         for t in self.tasks)
+
+    def place_one_per_bin(self, on: bool = True):
+        """Pack one subgraph a bin from here on (a Graphormer's placement,
+        `one_per_bin`), or FFD's bins again, with the split-global B that
+        placement needs."""
+        if on != self.one_per_bin:
+            self.one_per_bin = on
+            self._set_bins()
 
     # -- task materialization (reference __getitem__ :348-408) ---------------
 
@@ -277,9 +302,11 @@ class MetaDataset:
     def pack_task(self, t: _RawTask) -> TaskBatch:
         return TaskBatch(
             spt=pack_set(t.spt_subs, t.spt_graphs, t.spt_labels, self.store,
-                         self.P_spt, self.E_spt, B=self.B_spt),
+                         self.P_spt, self.E_spt, B=self.B_spt,
+                         one_per_bin=self.one_per_bin),
             qry=pack_set(t.qry_subs, t.qry_graphs, t.qry_labels, self.store,
-                         self.P_qry, self.E_qry, B=self.B_qry),
+                         self.P_qry, self.E_qry, B=self.B_qry,
+                         one_per_bin=self.one_per_bin),
         )
 
     def stacked_pool(self) -> TaskBatch:

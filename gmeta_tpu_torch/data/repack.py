@@ -112,6 +112,7 @@ class Segments(NamedTuple):
     of task t runs from start[t, q] to start[t, q + 1] (the last to M)."""
     start: torch.Tensor   # (T, n) int32 on the set's device, nondecreasing
     rows: int             # host: no range holds more rows
+    lengths: np.ndarray = None  # host: (T, n) the ranges' rows
 
 
 def segments(bin_fill: torch.Tensor, M: int, fills) -> Segments:
@@ -131,10 +132,17 @@ def segments(bin_fill: torch.Tensor, M: int, fills) -> Segments:
     fill = bin_fill.to(torch.int32)
     end = torch.cumsum(fill, dim=1, dtype=torch.int32)
     start = [end - fill]
-    if pad > 0:
+    pieces = -(-pad // rows) if pad > 0 else 0
+    if pieces:
         start.append(end[:, -1:] + rows * torch.arange(
-            -(-pad // rows), device=fill.device, dtype=torch.int32))
-    return Segments(torch.cat(start, dim=1).clamp_(max=M), rows)
+            pieces, device=fill.device, dtype=torch.int32))
+    # the same ranges' lengths from the host's fills
+    live = fills.sum(axis=-1, keepdims=True)
+    first = np.minimum(live + rows * np.arange(pieces), M)
+    lengths = np.concatenate(
+        [fills, np.diff(np.concatenate([first, np.full_like(live, M)], 1))],
+        axis=1)
+    return Segments(torch.cat(start, dim=1).clamp_(max=M), rows, lengths)
 
 
 def repack_batch(batch: TaskBatch, rows, live) -> TaskBatch:

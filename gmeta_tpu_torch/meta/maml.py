@@ -44,9 +44,10 @@ pool and window modes:
 - on the CSR path (agg="sized") every decoded step runs repacked, each
   task's live slots in one bin (data/repack.py), so no layer computes the
   pad slots; the row count comes from bin fills the host already holds
-  (the pools' and windows' own), never from the device. For a GAT the same
-  fills give each repacked set's segments (data/repack.py `segments`),
-  which the inner loop hands to the attention's graph.
+  (the pools' and windows' own), never from the device. For a GAT or a
+  Graphormer the same fills give each repacked set's segments
+  (data/repack.py `segments`), which the inner loop hands to the
+  attention's graph.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ from gmeta_tpu_torch.data.pack import SubgraphSet, TaskBatch
 from gmeta_tpu_torch.data.repack import (bin_rows, live_counts, repack_batch,
                                          segments)
 from gmeta_tpu_torch.meta.protonet import proto_loss_qry, proto_loss_spt
-from gmeta_tpu_torch.models import gat, module_for
+from gmeta_tpu_torch.models import SEGMENTED, module_for
 from gmeta_tpu_torch.models.gcn import GCN
 from gmeta_tpu_torch.parallel.collectives import all_reduce_flat, broadcast_
 from gmeta_tpu_torch.parallel.dp import local_tasks
@@ -84,10 +85,10 @@ def make_inner_loop(layer_spec: Sequence[Tuple[str, tuple]],
     """Returns inner_loop(params, task: TaskBatch, feats, segments=None)
     -> (meta_losses (T,), InnerAux). `params` is theta, shared by the T tasks
     of `task` (fields with a leading task axis, on the device); `segments`,
-    for a GAT on repacked sets, their (support, query) data/repack.py
-    `Segments`, which the attention's graph takes. meta_losses
-    are the LAST-step query losses (meta.py:161); the accuracy curve has
-    num_steps+1 entries with entry 0 the pre-update evaluation
+    for a GAT or a Graphormer on repacked sets, their (support, query)
+    data/repack.py `Segments`, which the attention's graph takes.
+    meta_losses are the LAST-step query losses (meta.py:161); the accuracy
+    curve has num_steps+1 entries with entry 0 the pre-update evaluation
     (meta.py:129-134).
 
     When grad mode is on and theta requires grad, meta_losses carry the
@@ -300,7 +301,9 @@ def _take_tasks_of(per_set, rows):
     if per_set is None:
         return None
     return tuple(x[rows] if isinstance(x, np.ndarray)
-                 else x._replace(start=x.start[rows]) for x in per_set)
+                 else x._replace(start=x.start[rows], lengths=None
+                                 if x.lengths is None else x.lengths[rows])
+                 for x in per_set)
 
 
 def _add_task_axis(task: TaskBatch) -> TaskBatch:
@@ -355,9 +358,11 @@ class MetaLearner:
             first_order=first_order, compute_dtype=compute_dtype, agg=agg)
         # the CSR path runs over repacked sets (data/repack.py); the dense
         # path multiplies a (P, P) block per bin and keeps the slot layout;
-        # a GAT's attention also takes the repacked sets' segments
+        # a GAT's or a Graphormer's attention also takes the repacked
+        # sets' segments
         self._repacks = agg == "sized"
-        self._segments = self._repacks and module_for(layer_spec) is gat
+        self._segments = (self._repacks
+                          and module_for(layer_spec) in SEGMENTED)
         self._feats = None
         self._cpool = None        # compact device-resident pool leaves
         self._cmeta = None        # (spt_meta, qry_meta) of the compact pool
@@ -426,12 +431,12 @@ class MetaLearner:
         where `fills` (the tasks' support and query bin fills) are known on
         the host, repacked into one bin per task (data/repack.py). M is the
         whole batch's, so every rank and every task chunk takes the same.
-        For a GAT on repacked sets, `segments` are their (support, query)
-        data/repack.py `Segments`, else None. Every entry point gives
-        `fills`; a batch of tensors passed to `train_step` has none and
-        runs in its slot layout, which only the tests that hold the two
-        layouts to each other and bench.py's FLOP count (the slot layout's
-        work) use."""
+        For a GAT or a Graphormer on repacked sets, `segments` are their
+        (support, query) data/repack.py `Segments`, else None. Every entry
+        point gives `fills`; a batch of tensors passed to `train_step` has
+        none and runs in its slot layout, which only the tests that hold
+        the two layouts to each other and bench.py's FLOP count (the slot
+        layout's work) use."""
         rows = None
         if fills is not None and self._repacks:
             rows = tuple(bin_rows(live_counts(f)) for f in fills)

@@ -61,7 +61,7 @@ from gmeta_tpu_torch.config import Config, PRESETS, build_model_config
 from gmeta_tpu_torch.data import repack
 from gmeta_tpu_torch.data.pack import TaskBatch
 from gmeta_tpu_torch.data.pipeline import (MetaDataset, agg_for,
-                                           edges_per_slot)
+                                           edges_per_slot, one_per_bin)
 from gmeta_tpu_torch.meta.maml import MetaLearner, take_tasks
 from gmeta_tpu_torch.models.gcn import count_params
 from gmeta_tpu_torch.parallel import mesh as mesh_mod
@@ -109,6 +109,8 @@ class Trainer:
             torch.autograd.set_detect_anomaly(True)
         self.metrics = metrics or rank_metrics(cfg.metrics_path, mesh)
         self.spec = build_model_config(cfg, store.feat_dim, labels_num)
+        for ds in datasets.values():
+            ds.place_one_per_bin(one_per_bin(self.spec))
         compute_dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                          else torch.float32)
         agg = cfg.agg

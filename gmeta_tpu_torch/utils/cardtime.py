@@ -225,6 +225,28 @@ def attention_bound(rows, edges, K, F, direction):
             "operations" if t_ops >= t_bytes else "bytes", nbytes)
 
 
+def spatial_attention_bound(lengths, K, D, direction):
+    """The least time the card could take for Graphormer's attention
+    (ops/spatial_attention.py) over segments of `lengths` rows, K heads of
+    D float32 features, in ms, and what bounds it: forward, q, k, v read,
+    o and the log-sum-exp written and phi's n^2 bytes read a segment of n,
+    or 4 n^2 D operations a head (both products); backward, those bytes and
+    o's gradient read and the gradients of q, k and v written, or 8 n^2 D
+    a head. The same count as the benchmark's
+    (benchmark/models/graphormer.py)."""
+    n = sum(lengths)
+    n2 = float(sum(x * x for x in lengths))
+    H = K * D
+    nbytes = 4.0 * n * (4 * H + K) + n2
+    ops = 4.0 * n2 * D * K
+    if direction != "fwd":
+        nbytes += 4.0 * n * 4 * H
+        ops *= 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_PEAK
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", nbytes)
+
+
 def dense_bound(S, P, H, dtype):
     """The least time for S products (P, P) @ (P, H), in ms, and what
     bounds it: 2 S P^2 H operations at the dtype's peak (float32 outside

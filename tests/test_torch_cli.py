@@ -39,7 +39,9 @@ def _main_cfg(monkeypatch, argv):
 # (config.py `model` and the GAT's widths), which the JAX package lacks.
 PORT_ONLY = [("arch", "str", "gcn"), ("gat_heads", "int", 4),
              ("gat_hidden", "int", 256), ("gat_out_heads", "int", 6),
-             ("gat_out_dim", "int", 121)]
+             ("gat_out_dim", "int", 121), ("graphormer_layers", "int", 12),
+             ("graphormer_hidden", "int", 80), ("graphormer_heads", "int", 8),
+             ("graphormer_ffn", "int", 80)]
 
 
 def _fields(cfg):
