@@ -244,7 +244,11 @@ Phases; any failure raises and the script exits non-zero:
                 the card against `fwd_plain` and `bwd_plain` (one forward
                 and four backward launches a call; o and the gradients of
                 q, k, v and the spatial table within rtol 1e-4, atol 2e-5
-                of each tensor's largest magnitude); (b) one meta-step of
+                of each tensor's largest magnitude), and at the query set
+                `fwd_rescale_share`: the share of the (row, head, key)
+                steps a row sees at which the forward kernel's rescale
+                fires, from the plain scores in the kernel's key order
+                (`rescale_share`); (b) one meta-step of
                 the cell's configuration (the tissue_ppi preset with arch
                 'graphormer', Graphormer-slim's widths, 16 tasks,
                 float32) on a batch of its geometry (GAT_SETS), after a
@@ -2713,10 +2717,10 @@ def check_graphormer(device):
     distances' bytes equal; one forward and four backward launches a
     call; o and the gradients of q, k, v and the table within rtol 1e-4
     and atol 2e-5 of each tensor's largest magnitude (float32 sums of a
-    segment's 586 terms in another order, the kernel's softmax online in
-    base 2; the backward's g . v - D cancels). A pair dropped or doubled
-    errs by a percent of the scale. Returns {set heads: max abs error over
-    scale, by tensor}."""
+    segment's 586 terms in another order, the kernel's softmax in one pass
+    in base 2; the backward's g . v - D cancels). A pair dropped or doubled
+    errs by a percent of the scale. Returns ({set heads: max abs error over
+    scale, by tensor}, the query set's `rescale_share`)."""
     import torch
 
     from gmeta_tpu_torch.ops import spatial_attention as sa
@@ -2772,9 +2776,38 @@ def check_graphormer(device):
         log(f"  {name} {T}x{B}x{P} as {graph.live.numel()} rows, "
             f"{len(seg) - 1} segments, heads {K}x{D}: distances equal; max "
             f"abs error over scale {row}")
-        del graph, qkv, table, g, x, tb, o, dx, dtb, want_o, lse, want_dx
+        del x, tb, o, dx, dtb, want_o, lse, want_dx
         torch.cuda.empty_cache()
-    return errs
+        if name == "qry":
+            share = rescale_share(graph, qkv, table, K, D)
+            log(f"  fwd_rescale_share at the query set: {share:.6g}")
+        del graph, qkv, table, g
+        torch.cuda.empty_cache()
+    return errs, share
+
+
+def rescale_share(graph, qkv, table, K, D):
+    """The share of the (row, head, key) steps a row sees (its segment's
+    visible keys) at which the forward kernel's rescale fires
+    (csrc/spatial_attention.cu `fwd_tile`): walking each segment's keys in
+    the kernel's order over the plain scores in base 2, a step fires where
+    its score passes the row's m by more than `RESCALE`, and m moves to
+    it; a masked pair never does. Off the cell's path: for phase 16."""
+    import torch
+
+    from gmeta_tpu_torch.ops import spatial_attention as sa
+    _, s, (_, valid, _, _) = sa._scores(graph, qkv, table, K, D)
+    s2 = s.mul_(1 / math.log(2))
+    keep = valid[:, None, :]
+    m = torch.full(s2.shape[:-1], -math.inf, device=s2.device)
+    fired = torch.zeros((), dtype=torch.long, device=s2.device)
+    for j in range(s2.shape[-1]):
+        sj = s2[..., j]
+        up = (sj - m > sa.RESCALE) & keep
+        m = torch.where(up, sj, m)
+        fired += up.sum()
+    seen = (torch.isfinite(s2) & keep[..., None]).sum()
+    return float(fired) / float(seen)
 
 
 def graphormer_step(device):
@@ -3074,7 +3107,7 @@ def main():
     t = phase("16 graphormer: the distances and attention kernels at "
               "graphormer_ppi.pool's shapes; one meta-step of its "
               "configuration")
-    sat_errs = check_graphormer(device)
+    sat_errs, sat_rescale = check_graphormer(device)
     sat_step_launches, sat_step_s, sat_peak = graphormer_step(device)
     with counted() as c:
         sat_bench, _ = run_script("bench_graphormer", [])
@@ -3267,6 +3300,7 @@ def main():
         "gat": {"errors": gat_errs, "step_s": gat_step_s,
                 "peak_gb": gat_peak, "launches": gat_step_launches},
         "graphormer": {"errors": sat_errs, "step_s": sat_step_s,
+                       "fwd_rescale_share": sat_rescale,
                        "peak_gb": sat_peak, "launches": sat_step_launches},
         "card": card}}))
     log(card)

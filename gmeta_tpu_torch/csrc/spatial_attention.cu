@@ -38,32 +38,52 @@
 //
 // - A block takes 64 rows of one segment (query-major kernels) or 64 keys
 //   (the key kernel) for all K heads: warp h is head h, each lane two rows
-//   (rows lane and lane + 32 of the tile). The other side's tile of 64
-//   rows (k and v forward; q, g, lse and D in the key kernel) sits in
-//   shared memory with each head padded to a multiple of 4 floats, so a
-//   lane reads a head's row with 16-byte loads, and all lanes of the warp
+//   (rows lane and lane + 32 of the tile). The other side's tile of rows
+//   (32 keys' k and v forward; 64 rows of q, g, lse and D in the key
+//   kernel, of k and v in the query kernel) sits in shared memory with
+//   each head padded to a multiple of 4 floats, so a lane reads a head's
+//   row with 16-byte loads (forward: one 8-byte load for a width of 4n +
+//   2, so that no register holds padding), and all lanes of the warp
 //   read the same row at once (a broadcast: one shared-memory transaction
 //   serves 64 pairs). A head width of 10 is no multiple of 4: its rows
 //   are padded to 12 in shared memory; the kernels are built for the
 //   widths ops/spatial_attention.py names.
 // - phi's tile rows for the block's rows sit in shared memory with a pitch
 //   of 80 bytes, so each lane reads 16 of its pairs' bytes in one 16-byte
-//   load without bank conflicts; the task's table sits in shared memory
+//   load without bank conflicts (the forward: 8 bytes at a pitch of 40,
+//   so that fewer registers hold them); the task's table sits in shared memory
 //   by byte (256 x K floats, byte 255 holding row 511), in log2 units, so
 //   a pair's bias is one load at byte * K + h.
 // - Scores are kept in base 2 (q . k times log2(e) / sqrt(D), the bias
-//   times log2(e)), so each weight is one ex2 instruction. The forward
-//   takes the softmax online over sub-tiles of 16 keys (one rescale a
-//   sub-tile).
+//   times log2(e)), so each weight is one ex2 instruction; the forward
+//   scales q by log2(e) / sqrt(D) as it loads it, and starts each dot
+//   product from the pair's bias.
+// - The forward takes the softmax in one pass with no buffer of scores: a
+//   lane folds each key's weight into its rows' (m, l, acc) before it
+//   reads the next key. A row's m is a score it has seen; only a score
+//   more than RESCALE (8, base 2) above it becomes the new m, scaling l
+//   and acc down to it, so each weight is at most 2^8 and l, over at most
+//   1,024 keys, stays far from overflow. After a row's first key the
+//   branch is rare (0.19% of the steps at the cell's query set), so each
+//   lane takes it alone: a warp-wide vote (__any_sync) before it ran 14%
+//   slower, as the compiler then schedules nothing across it. A buffer of
+//   each sub-tile's scores, which took the max before any ex2, held 32
+//   more registers a lane and spilled inside the loop at 80.
 // - A tile whose pairs are all seen (a whole tile of a segment without
 //   pad rows: every tile but a segment's last, in the repacked layout)
 //   runs a copy of the loop that checks no pair.
 // - The tiles are staged with a warp a row and its lanes along the row,
-//   with no division by a run-time width.
-// - The forward runs three blocks an SM (at most 80 registers a thread):
-//   it waits on shared memory more than it computes, and more warps hide
-//   that (2.51 ms against 2.96 at two blocks, the cell's query set); the
-//   backward kernels keep two (128 registers), as they spill at 80.
+//   with no division by a run-time width. The forward stages by async
+//   copies (cp.async, no register on the way) into two buffers of 32 keys:
+//   the next tile's copies are in flight while the block computes on this
+//   one, and a segment's live bytes are staged once. Staged through
+//   registers, one load's wait at a time, its tiles took about 40% of its
+//   time (1.46 ms of 2.40 left without them, the cell's query set).
+// - The forward runs FWD_BLOCKS blocks an SM (three: at most 80 registers
+//   a thread, which it fits without spilling at every width), as more
+//   warps hide the latency of its shared-memory reads and of each key's
+//   chain (two blocks: 1.78 ms against 1.70); the backward kernels keep
+//   two (128 registers), as they spill at 80.
 // - The table's gradient adds up in a fixed order with no float atomics:
 //   each thread sums its pairs of bytes 0-30 and 255 into slots of its
 //   own in shared memory (slot-major, so a warp's 32 lanes hit 32 banks);
@@ -100,6 +120,13 @@ constexpr int QT = WARP * RPL;    // rows (or keys) a block takes
 constexpr int SUB = 16;           // pairs a lane reads bytes of at once
 constexpr int PITCH = TILE + 16;  // bytes a staged phi row
 constexpr int SLOTS = 32;         // thread-private table-gradient slots
+constexpr int FWD_SUB = 8;        // keys a forward lane reads bytes of at once
+constexpr int FWD_TILE = 32;      // keys a forward tile stages (two in flight)
+// bytes a staged phi row in the forward: 10 words, so that a half-warp's
+// 8-byte reads of 16 rows hit all 32 banks once
+constexpr int FWD_PITCH = FWD_TILE + 8;
+constexpr int FWD_BLOCKS = 3;     // forward blocks an SM (launch bounds)
+constexpr float RESCALE = 8.f;    // the forward's rescale step (base 2)
 constexpr int MAX_ROWS = 1024;    // rows a segment (the distances' cap)
 constexpr long long SMEM_LIMIT = 232448;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -127,12 +154,46 @@ __device__ __forceinline__ void load_head(const float* p, float (&x)[D]) {
   for (int c = 0; c < D; ++c) x[c] = f[c];
 }
 
+// A head's D floats from shared memory (16-byte aligned) in 16-byte loads
+// and, for a width of 4n + 2, one 8-byte load: no register holds padding.
+template <int D>
+__device__ __forceinline__ void load_row(const float* p, float (&x)[D]) {
+  static_assert(D % 2 == 0, "head widths are even");
+#pragma unroll
+  for (int c = 0; c + 4 <= D; c += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + c);
+    x[c] = v.x;
+    x[c + 1] = v.y;
+    x[c + 2] = v.z;
+    x[c + 3] = v.w;
+  }
+  if constexpr (D % 4 == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p + D - 2);
+    x[D - 2] = v.x;
+    x[D - 1] = v.y;
+  }
+}
+
 template <int D>
 __device__ __forceinline__ float dot(const float (&a)[D], const float (&b)[D]) {
   float s = 0.f;
 #pragma unroll
   for (int c = 0; c < D; ++c) s = fmaf(a[c], b[c], s);
   return s;
+}
+
+// b + a . x in two chains of multiply-adds (even and odd features), so a
+// score waits on D / 2 of them in turn, not D.
+template <int D>
+__device__ __forceinline__ float dot_from(const float (&a)[D],
+                                          const float (&x)[D], float b) {
+  float e = b, f = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; c += 2) {
+    e = fmaf(a[c], x[c], e);
+    f = fmaf(a[c + 1], x[c + 1], f);
+  }
+  return e + f;
 }
 
 // The bytes of a lane's row (its tile row `r`) for pairs j0 .. j0 + 15.
@@ -146,12 +207,43 @@ __device__ __forceinline__ int byte_at(const uint4& w, int jj) {
   return (word >> (8 * (jj & 3))) & 0xff;
 }
 
-// 2^x in one instruction (MUFU.EX2; x <= 0 here, where its relative error
-// is under 2^-22 and a result below 2^-126 flushes to 0).
+// The same for pairs j0 .. j0 + 7 of the forward's rows (FWD_PITCH).
+__device__ __forceinline__ uint2 codes8_of(const unsigned char* ph, int r,
+                                           int j0) {
+  return *reinterpret_cast<const uint2*>(ph + r * FWD_PITCH + j0);
+}
+
+__device__ __forceinline__ int byte_at(const uint2& w, int jj) {
+  return ((jj < 4 ? w.x : w.y) >> (8 * (jj & 3))) & 0xff;
+}
+
+// 2^x in one instruction (MUFU.EX2; x <= RESCALE here, where its relative
+// error is under 2^-22 and a result below 2^-126 flushes to 0).
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Copy 4 bytes from device to shared memory without a register (cp.async):
+// a thread issues all of a tile's copies before it waits for any.
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// Close this thread's group of async copies issued since the last one.
+__device__ __forceinline__ void commit_async() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's groups are in flight (then a
+// barrier shows all threads' copies).
+template <int N>
+__device__ __forceinline__ void wait_async() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Stage the task's table by byte, in log2 units: row c of the 256 is the
@@ -167,18 +259,23 @@ __device__ __forceinline__ void stage_table(float* tab, const float* table,
 // Stage rows [first, first + count) (count <= TILE) of a (., ld) matrix's
 // H columns from column `from`, each head padded to P floats; rows past
 // count are zero. A warp takes a row, its lanes neighbouring columns.
-template <int D>
+// ASYNC copies without registers (wait_async before the barrier); ROWS
+// rows a tile.
+template <int D, bool ASYNC = false, int ROWS = TILE>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            long long first, int count,
                                            int ld, int from, int K) {
   constexpr int P = Head<D>::P;
   const int H = K * D, lane = threadIdx.x % WARP;
-  for (int j = threadIdx.x / WARP; j < TILE; j += blockDim.x / WARP) {
+  for (int j = threadIdx.x / WARP; j < ROWS; j += blockDim.x / WARP) {
     const float* row = src + (first + j) * ld + from;
     float* out = dst + j * K * P;
     for (int col = lane; col < H; col += WARP) {
       const int h = col / D, c = col - h * D;
-      out[h * P + c] = j < count ? row[col] : 0.f;
+      if (ASYNC && j < count)
+        copy_async(out + h * P + c, row + col);
+      else
+        out[h * P + c] = j < count ? row[col] : 0.f;
     }
   }
 }
@@ -199,20 +296,24 @@ __device__ __forceinline__ void stage_live(unsigned char* dst,
 }
 
 // Stage phi's bytes of tile rows [r0, r0 + QT) (those under n) and
-// columns [c0, c0 + TILE) of segment s, PITCH bytes a row.
+// columns [c0, c0 + COLS) of segment s, PITCH_ bytes a row (ASYNC as in
+// stage_rows).
+template <bool ASYNC = false, int COLS = TILE, int PITCH_ = PITCH>
 __device__ __forceinline__ void stage_phi(unsigned char* ph,
                                           const unsigned char* phi, int s,
                                           int stride, int r0, int c0,
                                           int n) {
   const unsigned char* tile =
       phi + static_cast<size_t>(s) * stride * stride;
-  for (int i = threadIdx.x; i < QT * (TILE / 4); i += blockDim.x) {
-    const int r = i / (TILE / 4), w = i - r * (TILE / 4);
-    uint32_t v = FULL;
-    if (r0 + r < n)
-      v = *reinterpret_cast<const uint32_t*>(
-          tile + static_cast<size_t>(r0 + r) * stride + c0 + 4 * w);
-    *reinterpret_cast<uint32_t*>(ph + r * PITCH + 4 * w) = v;
+  for (int i = threadIdx.x; i < QT * (COLS / 4); i += blockDim.x) {
+    const int r = i / (COLS / 4), w = i - r * (COLS / 4);
+    const unsigned char* src =
+        tile + static_cast<size_t>(r0 + r) * stride + c0 + 4 * w;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(ph + r * PITCH_ + 4 * w);
+    if (ASYNC && r0 + r < n)
+      copy_async(dst, src);
+    else
+      *dst = r0 + r < n ? *reinterpret_cast<const uint32_t*>(src) : FULL;
   }
 }
 
@@ -236,60 +337,59 @@ __device__ __forceinline__ bool far_bytes(const uint4& w) {
 }
 
 // The forward's work on one staged tile of keys: the block's rows of head
-// h against keys 0 .. nk - 1 of the tile (k0 its first key); MASK checks
-// each pair (a partial tile, or a segment with pad rows).
+// h against keys 0 .. nk - 1 of the tile (k0 its first key), a key at a
+// time, each weight folded into (m, l, acc) at once (module header); MASK
+// checks each pair (a partial tile, or a segment with pad rows). A masked
+// pair adds nothing and never moves m; a row's first key that it sees
+// always rescales, from m = -inf (alpha 0).
 template <int D, bool MASK>
 __device__ __forceinline__ void fwd_tile(
     const float* ks, const float* vs, const unsigned char* ph,
     const unsigned char* kl, const float* tab, int KP, int K, int h,
     int lane, int nk, int k0, int q0, const bool (&lv)[RPL],
-    const float (&q)[RPL][D], float (&acc)[RPL][D], float (&m)[RPL],
-    float (&l)[RPL], float c1) {
+    const float (&q)[RPL][D], float (&acc)[RPL][D],
+    float (&m)[RPL], float (&l)[RPL]) {
   constexpr int P = Head<D>::P;
-  for (int j0 = 0; j0 < nk; j0 += SUB) {
-    float sc[RPL][SUB];
-    uint4 cw[RPL];
+  for (int j0 = 0; j0 < nk; j0 += FWD_SUB) {
+    uint2 cw[RPL];
 #pragma unroll
-    for (int k = 0; k < RPL; ++k) cw[k] = codes_of(ph, lane + WARP * k, j0);
+    for (int k = 0; k < RPL; ++k)
+      cw[k] = codes8_of(ph, lane + WARP * k, j0);
 #pragma unroll
-    for (int jj = 0; jj < SUB; ++jj) {
+    for (int jj = 0; jj < FWD_SUB; ++jj) {
       const int j = j0 + jj;
-      float kr[D];
-      load_head<D>(ks + j * KP + h * P, kr);
+      float s[RPL], d[RPL];
+      bool ok[RPL], up = false;
+      {
+        float kr[D];
+        load_row<D>(ks + j * KP + h * P, kr);
 #pragma unroll
-      for (int k = 0; k < RPL; ++k) {
-        const float b = tab[byte_at(cw[k], jj) * K + h];
-        const float s = fmaf(dot<D>(q[k], kr), c1, b);
-        if (MASK) {
-          const int r = q0 + lane + WARP * k;
-          const bool ok = j < nk && ((lv[k] && kl[j]) || k0 + j == r);
-          sc[k][jj] = ok ? s : -INFINITY;
-        } else {
-          sc[k][jj] = s;
+        for (int k = 0; k < RPL; ++k) {
+          s[k] = dot_from<D>(q[k], kr, tab[byte_at(cw[k], jj) * K + h]);
+          ok[k] = !MASK || (j < nk && ((lv[k] && kl[j]) ||
+                                       k0 + j == q0 + lane + WARP * k));
+          d[k] = s[k] - m[k];
+          up |= ok[k] && d[k] > RESCALE;
         }
       }
-    }
+      if (up) {
 #pragma unroll
-    for (int k = 0; k < RPL; ++k) {
-      float mx = m[k];
+        for (int k = 0; k < RPL; ++k) {
+          if (ok[k] && d[k] > RESCALE) {
+            const float alpha = ex2(-d[k]);   // 0 where m was -inf
+            l[k] *= alpha;
 #pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) mx = fmaxf(mx, sc[k][jj]);
-      if (mx != m[k]) {
-        const float alpha = ex2(m[k] - mx);   // 0 where m was -inf
-        l[k] *= alpha;
-#pragma unroll
-        for (int c = 0; c < D; ++c) acc[k][c] *= alpha;
-        m[k] = mx;
+            for (int c = 0; c < D; ++c) acc[k][c] *= alpha;
+            m[k] = s[k];
+            d[k] = 0.f;
+          }
+        }
       }
-    }
-#pragma unroll
-    for (int jj = 0; jj < SUB; ++jj) {
       float vr[D];
-      load_head<D>(vs + (j0 + jj) * KP + h * P, vr);
+      load_row<D>(vs + j * KP + h * P, vr);
 #pragma unroll
       for (int k = 0; k < RPL; ++k) {
-        const float p = MASK && sc[k][jj] == -INFINITY
-                            ? 0.f : ex2(sc[k][jj] - m[k]);
+        const float p = ok[k] ? ex2(d[k]) : 0.f;
         l[k] += p;
 #pragma unroll
         for (int c = 0; c < D; ++c) acc[k][c] = fmaf(p, vr[c], acc[k][c]);
@@ -298,9 +398,27 @@ __device__ __forceinline__ void fwd_tile(
   }
 }
 
-// The forward: grid (S, row tiles), 32 K threads.
+// Stage the forward's key tile from key k0 of segment s (rows a ..) into
+// one buffer by async copies: the keys' k and v rows (zero past n) and
+// phi's bytes of the block's rows q0 .. for those keys.
 template <int D>
-__global__ void __launch_bounds__(256, 3)
+__device__ __forceinline__ void stage_keys(float* ks, float* vs,
+                                           unsigned char* ph,
+                                           const float* qkv,
+                                           const unsigned char* phi, int s,
+                                           int stride, long long a, int k0,
+                                           int n, int q0, int K) {
+  const int H = K * D, nk = min(FWD_TILE, n - k0);
+  stage_rows<D, true, FWD_TILE>(ks, qkv, a + k0, nk, 3 * H, H, K);
+  stage_rows<D, true, FWD_TILE>(vs, qkv, a + k0, nk, 3 * H, 2 * H, K);
+  stage_phi<true, FWD_TILE, FWD_PITCH>(ph, phi, s, stride, q0, k0, n);
+}
+
+// The forward: grid (S, row tiles of QT), 32 K threads. Key tiles
+// alternate between two buffers: tile t + 1's copies are in flight while
+// the block computes on tile t.
+template <int D>
+__global__ void __launch_bounds__(256, FWD_BLOCKS)
     sattn_fwd_kernel(const float* __restrict__ qkv,
                      const float* __restrict__ table,
                      const unsigned char* __restrict__ phi,
@@ -312,10 +430,12 @@ __global__ void __launch_bounds__(256, 3)
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = K * D, ld = 3 * H, KP = K * P;
   float* tab = reinterpret_cast<float*>(smem);
-  float* ks = tab + CODES * K;
-  float* vs = ks + TILE * KP;
-  unsigned char* ph = reinterpret_cast<unsigned char*>(vs + TILE * KP);
-  unsigned char* kl = ph + QT * PITCH;
+  float* ks = tab + CODES * K;                 // 2 x FWD_TILE keys
+  float* vs = ks + 2 * FWD_TILE * KP;
+  unsigned char* ph =
+      reinterpret_cast<unsigned char*>(vs + 2 * FWD_TILE * KP);
+  unsigned char* kl = ph + 2 * QT * FWD_PITCH;  // the segment's live bytes
+                                                // (and QT past its end)
 
   const int s = blockIdx.x;
   const long long a = seg[s];
@@ -323,8 +443,13 @@ __global__ void __launch_bounds__(256, 3)
   const int q0 = blockIdx.y * QT;
   if (q0 >= n) return;
   const int h = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  stage_keys<D>(ks, vs, ph, qkv, phi, s, stride, a, 0, n, q0, K);
+  commit_async();
   stage_table(tab, table, s / per_task, K);
-  const bool dense = all_live(live, a, n);
+  int all = 1;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    all &= (kl[i] = live[a + i]) != 0;
+  const bool dense = __syncthreads_and(all);
 
   float q[RPL][D], acc[RPL][D], m[RPL], l[RPL];
   bool valid[RPL], lv[RPL];
@@ -332,30 +457,38 @@ __global__ void __launch_bounds__(256, 3)
   for (int k = 0; k < RPL; ++k) {
     const int r = q0 + lane + WARP * k;
     valid[k] = r < n;
-    lv[k] = valid[k] && live[a + r];
+    lv[k] = valid[k] && kl[r];
 #pragma unroll
     for (int c = 0; c < D; ++c) {
-      q[k][c] = valid[k] ? qkv[(a + r) * ld + h * D + c] : 0.f;
+      q[k][c] = valid[k] ? qkv[(a + r) * ld + h * D + c] * c1 : 0.f;
       acc[k][c] = 0.f;
     }
     m[k] = -INFINITY;
     l[k] = 0.f;
   }
 
-  for (int k0 = 0; k0 < n; k0 += TILE) {
-    const int nk = min(TILE, n - k0);
+  for (int k0 = 0, b = 0; k0 < n; k0 += FWD_TILE, b ^= 1) {
+    const int nk = min(FWD_TILE, n - k0);
+    if (k0 + FWD_TILE < n) {
+      stage_keys<D>(ks + (b ^ 1) * FWD_TILE * KP, vs + (b ^ 1) * FWD_TILE * KP,
+                    ph + (b ^ 1) * QT * FWD_PITCH, qkv, phi, s, stride, a,
+                    k0 + FWD_TILE, n, q0, K);
+      commit_async();
+      wait_async<1>();
+    } else {
+      wait_async<0>();
+    }
     __syncthreads();
-    stage_rows<D>(ks, qkv, a + k0, nk, ld, H, K);
-    stage_rows<D>(vs, qkv, a + k0, nk, ld, 2 * H, K);
-    stage_live(kl, live, a + k0, nk);
-    stage_phi(ph, phi, s, stride, q0, k0, n);
-    __syncthreads();
-    if (dense && nk == TILE)
-      fwd_tile<D, false>(ks, vs, ph, kl, tab, KP, K, h, lane, nk, k0, q0,
-                         lv, q, acc, m, l, c1);
+    const float* kt = ks + b * FWD_TILE * KP;
+    const float* vt = vs + b * FWD_TILE * KP;
+    const unsigned char* pt = ph + b * QT * FWD_PITCH;
+    if (dense && nk == FWD_TILE)
+      fwd_tile<D, false>(kt, vt, pt, kl + k0, tab, KP, K, h, lane, nk, k0,
+                         q0, lv, q, acc, m, l);
     else
-      fwd_tile<D, true>(ks, vs, ph, kl, tab, KP, K, h, lane, nk, k0, q0, lv,
-                        q, acc, m, l, c1);
+      fwd_tile<D, true>(kt, vt, pt, kl + k0, tab, KP, K, h, lane, nk, k0,
+                        q0, lv, q, acc, m, l);
+    __syncthreads();   // the buffer is free for tile t + 2
   }
 #pragma unroll
   for (int k = 0; k < RPL; ++k) {
@@ -753,8 +886,8 @@ int threads_for(int K) { return WARP * K; }
 
 template <int D>
 long long fwd_smem(int K) {
-  return 4LL * (CODES * K + 2LL * TILE * K * Head<D>::P) + QT * PITCH +
-         TILE;
+  return 4LL * (CODES * K + 4LL * FWD_TILE * K * Head<D>::P) +
+         2 * QT * FWD_PITCH + MAX_ROWS + QT;
 }
 
 template <int D>

@@ -68,6 +68,10 @@ NO_PATH = 255         # phi's byte for a pair no path joins: table row 511
 MAX_DISTANCE = 254    # a longer path takes this byte
 MAX_DEGREE = TABLE_ROWS - 1
 TILE = 64             # phi's stride is a multiple of this
+# The forward kernel's rescale step (csrc/spatial_attention.cu `RESCALE`):
+# a row's running max moves only to a score more than this many base-2
+# units above it
+RESCALE = 8.0
 # The most rows a segment may hold: the distance kernel keeps a segment's
 # adjacency in shared memory as 32 words a row (csrc/spatial_attention.cu)
 MAX_ROWS = 1024

@@ -87,16 +87,65 @@ def lengths(graph) -> list:
     return (seg[1:] - seg[:-1]).tolist()
 
 
-def operands(graph, K, D, device, seed=0):
+# Score orders of `operands` for the forward's rescale
+# (csrc/spatial_attention.cu): a key's score in nats above the one
+# before for "rising" (below for "falling"), past the kernel's rescale
+# step of 8 in base 2 (5.55 nats) with room for the small table's bias;
+# the last key's lead for "last"; the table's magnitude for "far"
+ORDERS = ("random", "rising", "falling", "last", "far")
+RISE, LEAD, FAR = 7.0, 8.0, 40.0
+
+
+def operands(graph, K, D, device, seed=0, order="random"):
     """Random (qkv (N, 3 K D), table (T, 512, K), g (N, K D)) for the
-    graph."""
+    graph. `order` (ORDERS) shapes each row's scores along its segment's
+    keys, in the order the forward kernel walks them: "random" (normal q,
+    k, v and table); "rising", every key RISE nats above the one before
+    for every row (q the same for all rows, k_j grows with j's place in
+    its segment), so that every key rescales; "falling", the reverse, so
+    that only a row's first key does; "last", each segment's last live
+    key about LEAD nats above the rest for every row; "far", a table of
+    +-FAR, so that a row's scores differ by many rescale steps. Where one
+    key carries each row's softmax ("rising", "falling", "last": its last
+    or first live key, and a pad row itself), the table is a twentieth of
+    normal, that key's v is 0 and its score near 0 (k_j counts places
+    from it), so that the backward's ds, p (g . v - g . o), and dq, a
+    sum of ds k over keys, are no differences of near values that
+    float32 cannot resolve."""
     gen = torch.Generator(device=device).manual_seed(seed)
     N = graph.live.numel()
     T = (graph.seg.numel() - 1) // graph.per_task
     qkv = torch.randn(N, 3 * K * D, generator=gen, device=device)
     table = torch.randn(T, sa.TABLE_ROWS, K, generator=gen, device=device)
     g = torch.randn(N, K * D, generator=gen, device=device)
-    return qkv, table, g
+    if order == "far":
+        return qkv, FAR * table.sign(), g
+    if order == "random":
+        return qkv, table, g
+    if order not in ORDERS:
+        raise ValueError(f"order {order!r}: want one of {ORDERS}")
+    H, S = K * D, graph.seg.numel() - 1
+    rows = torch.arange(N, device=device)
+    seg = graph.seg.long()
+    of = torch.searchsorted(seg, rows, right=True) - 1
+    live = graph.live != 0
+    first = torch.full((S,), N, device=device).scatter_reduce(
+        0, of[live], rows[live], "amin")
+    last = torch.full((S,), -1, device=device).scatter_reduce(
+        0, of[live], rows[live], "amax")
+    top = first if order == "falling" else last
+    if order == "last":
+        u = torch.randn(K, D, generator=gen, device=device).sign().view(-1)
+        qkv[:, :H] = u + 0.1 * qkv[:, :H]
+        qkv[:, H:2 * H] *= 0.1
+        qkv[last[last >= 0], H:2 * H] = LEAD / D ** 0.5 * u
+    else:
+        sign = 1.0 if order == "rising" else -1.0
+        qkv[:, :H] = 1.0
+        qkv[:, H:2 * H] = sign * RISE / D ** 0.5 * (rows - top[of])[:, None]
+    qkv[top[top >= 0], 2 * H:] = 0.0
+    qkv[~live, 2 * H:] = 0.0
+    return qkv, 0.05 * table, g
 
 
 def main(argv=None):

@@ -8,6 +8,8 @@ configuration's refusals, the spans, the Trainer and its CLI, the
 one-subgraph-a-bin placement, and the GCN's and the GAT's bits unchanged.
 CPU; imports neither jax nor the JAX package."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,8 @@ from gmeta_tpu_torch.meta.maml import MetaLearner, batch_to
 from gmeta_tpu_torch.models import gat, gcn, graphormer, module_for
 from gmeta_tpu_torch.ops import spatial_attention as sa
 from gmeta_tpu_torch.run import train as train_mod
+from gmeta_tpu_torch.scripts.bench_graphormer import (ORDERS, operands,
+                                                      packed_graph)
 from gmeta_tpu_torch.utils import metrics
 
 torch.set_num_threads(2)
@@ -226,6 +230,77 @@ def test_gradcheck_of_the_plain_attention_in_float64(inputs, K, D):
     assert torch.autograd.gradcheck(
         lambda q, t: sa.attend(g, q, t, K, D), (qkv, table), eps=1e-6,
         atol=1e-6)
+
+
+def _one_pass(graph, qkv, table, K, D):
+    """The forward kernel's single pass (csrc/spatial_attention.cu
+    `fwd_tile`) in qkv's dtype: over each segment's keys in the kernel's
+    order, each weight folded into (m, l, acc) at once, a row's m moving
+    only to a score more than sa.RESCALE (base 2) above it, which scales l
+    and acc down to it; a masked pair adds nothing and never moves m.
+    Returns (o, lse) laid out as fwd_plain's, each row's visible keys and
+    rescales (S, K, R), and the largest l."""
+    (_, _, v), s, (idx, valid, _, _) = sa._scores(graph, qkv, table, K, D)
+    s2 = s / math.log(2)
+    S, _, R, _ = s2.shape
+    m = torch.full((S, K, R), -math.inf, dtype=qkv.dtype)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(S, K, R, D, dtype=qkv.dtype)
+    seen = torch.zeros(S, K, R, dtype=torch.long)
+    fired = torch.zeros_like(seen)
+    for j in range(R):
+        sj = s2[..., j]
+        ok = torch.isfinite(sj)
+        d = sj - m                      # +inf where m is -inf
+        up = ok & (d > sa.RESCALE)
+        alpha = torch.where(up, torch.exp2(-d), 1.0)
+        l, acc = l * alpha, acc * alpha[..., None]
+        m = torch.where(up, sj, m)
+        d = torch.where(up, 0.0, d)
+        p = torch.where(ok, torch.exp2(d), 0.0)
+        l = l + p
+        acc = acc + p[..., None] * v[:, j, :, None, :]
+        seen += ok
+        fired += up
+    rows = idx[valid]
+    o = qkv.new_zeros(qkv.shape[0], K * D)
+    o[rows] = (acc / l[..., None]).permute(0, 2, 1, 3)[valid].reshape(
+        -1, K * D)
+    lse = qkv.new_zeros(qkv.shape[0], K)
+    lse[rows] = ((m + torch.log2(l)) * math.log(2)).permute(0, 2, 1)[valid]
+    keep = valid[:, None, :]
+    return o, lse, seen * keep, fired * keep, float(l[keep.expand_as(l)].max())
+
+
+@pytest.mark.parametrize("K,D", [(2, 4), (1, 10)])
+@pytest.mark.parametrize("layout", ["repacked", "slot"])
+@pytest.mark.parametrize("order", ORDERS)
+def test_the_forwards_single_pass_is_the_dense_softmax(order, layout, K, D):
+    """The forward kernel's single pass with its rescale step, emulated in
+    float64 in the kernel's key order (`_one_pass`), gives fwd_plain's o
+    and lse: on random scores, on scores that rise along the keys (every
+    key a row sees rescales), that fall (only its first does), whose
+    largest sits at a segment's last key (the last of a partial tile),
+    and on a table of +-40; repacked, and in the slot layout, whose pad
+    keys are masked to every live row. No weight passes 2^RESCALE, so l
+    stays under a segment's keys times 2^RESCALE."""
+    graph = packed_graph(2, 2, 128, 100, 300, "cpu",
+                         repacked=layout == "repacked")
+    qkv, table, _ = (x.double() for x in operands(graph, K, D, "cpu",
+                                                  order=order))
+    o, lse, seen, fired, top = _one_pass(graph, qkv, table, K, D)
+    want_o, want_lse = sa.fwd_plain(graph, qkv, table, K, D)
+    torch.testing.assert_close(o, want_o, rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-9, atol=1e-12)
+    live = seen > 0
+    assert bool((fired[live] >= 1).all()) and top <= 128 * 2**sa.RESCALE
+    if order == "rising":
+        assert torch.equal(fired, seen)
+    if order == "falling":
+        assert torch.equal(fired, live.long())
+    # a live row sees the 100 live keys, a pad slot only itself
+    assert seen.unique().tolist() == ([1, 100] if layout == "slot"
+                                      else [100])
 
 
 def test_the_backward_is_first_order_only(inputs):

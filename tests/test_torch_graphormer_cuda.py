@@ -2,9 +2,12 @@
 plain versions (ops/spatial_attention.py `fwd_plain`, `bwd_plain`,
 `distances_plain`): at the `graphormer_ppi.pool` cell's query and support
 sets (16 tasks x 16 or 6 bins of 586 live slots, repacked, 8 heads of
-10), at a tiny shape, at segments of 1, 8 and 1,024 rows, on graphs that
-fall apart and on a path longer than a byte holds; two launches give the
-same bits; and the launches of meta-steps. Marked `cuda`: they skip
+10), at a tiny shape, on scores that drive the forward's rescale (every
+key rescaling, a row's largest score at the last key of a partial tile,
+a table of +-40, pad keys masked to live rows) at every head width and 1
+and 8 heads, at segments of 1, 8 and 1,024 rows, on graphs that fall
+apart and on a path longer than a byte holds; two launches give the same
+bits; and the launches of meta-steps. Marked `cuda`: they skip
 without a card. Imports neither jax nor the JAX package; run on the card
 with
 
@@ -29,6 +32,18 @@ pytestmark = pytest.mark.cuda
 
 CASES = {**SHAPES, "tiny": (2, 2, 32, 20, 60)}
 HEADS = [(8, 10), (2, 4)]
+# Scores that drive the forward's rescale (bench_graphormer.operands'
+# orders): case -> (set shape, repacked, order); segments of 100 rows, so
+# a segment's second tile of keys is partial (36 keys), and in the slot
+# layout 28 pad rows a segment whose keys score above every live key
+RESCALE_SET = (2, 2, 128, 100, 300)
+RESCALE_CASES = {"rising": (RESCALE_SET, True, "rising"),
+                 "last_key": (RESCALE_SET, True, "last"),
+                 "table40": (RESCALE_SET, True, "far"),
+                 "pad_keys": (RESCALE_SET, False, "rising")}
+KERNEL_CASES = ([(c, K, D) for c in sorted(CASES) for K, D in HEADS]
+                + [(c, K, D) for c in sorted(RESCALE_CASES)
+                   for K in (1, 8) for D in sa.HEAD_WIDTHS])
 
 
 @pytest.fixture
@@ -41,7 +56,7 @@ def cuda():
 
 def _close(got, want, what):
     """Within float32 rounding of sums taken in another order: the kernel
-    takes each row's softmax online over tiles of keys in base 2, the
+    takes each row's softmax in one pass over its keys in base 2, the
     plain version a dense softmax; the weighted sums add a segment's up to
     1,024 terms in another order, and the backward's g . v - D cancels. So
     the tolerance is relative to each tensor's scale: a pair dropped or
@@ -51,8 +66,8 @@ def _close(got, want, what):
                                msg=what)
 
 
-def _check_against_plain(graph, K, D, device, what):
-    qkv, table, g = operands(graph, K, D, device)
+def _check_against_plain(graph, K, D, device, what, order="random"):
+    qkv, table, g = operands(graph, K, D, device, order=order)
     o, lse = sa._launch_fwd(graph, qkv, table, K, D)
     want_o, want_lse = sa.fwd_plain(graph, qkv, table, K, D)
     _close(o, want_o, f"{what} o")
@@ -68,12 +83,15 @@ def _check_against_plain(graph, K, D, device, what):
     return qkv, table, g
 
 
-@pytest.mark.parametrize("K,D", HEADS)
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case,K,D", KERNEL_CASES)
 def test_kernels_are_their_plain_versions(cuda, case, K, D):
-    T, B, P, live, edges = CASES[case]
-    graph = packed_graph(T, B, P, live, edges, cuda, repacked=True)
-    _check_against_plain(graph, K, D, cuda, f"{case} {K}x{D}")
+    """o, lse and the backward, which reads lse, against the plain
+    versions."""
+    shape, repacked, order = RESCALE_CASES.get(case,
+                                               (CASES.get(case), True,
+                                                "random"))
+    graph = packed_graph(*shape, cuda, repacked=repacked)
+    _check_against_plain(graph, K, D, cuda, f"{case} {K}x{D}", order)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
